@@ -1,0 +1,50 @@
+"""Weights carried across from the JAX package, as numpy arrays.
+
+`jax.random` and `torch.Generator` draw different numbers from one seed, so
+a test that compares the two packages builds both models from the same
+numpy tree: the JAX package's parameter tree with every leaf converted by
+`np.asarray` (stacked stages included). Nothing here imports JAX: the
+caller hands over numpy arrays and plain attributes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bitplane import BitplaneWeights
+from .core.quant import QuantSpec
+from .device import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    # copy: JAX hands out read-only buffers
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """Nested dict of numpy arrays → the same tree of tensors on `device`
+    (the GPU unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _tensor(t, device)
+
+    return walk(tree)
+
+
+def bitplane_from_numpy(planes, scale, zero: int, col_sum, n: int, spec,
+                        device=None) -> BitplaneWeights:
+    """A JAX `BitplaneWeights`' fields → the port's: uint32 planes are
+    reinterpreted as int32 bit patterns; `spec` is anything with `bits`,
+    `symmetric` and `group_size`."""
+    device = resolve_device(device)
+    words = np.ascontiguousarray(np.asarray(planes, dtype=np.uint32))
+    return BitplaneWeights(
+        planes=_tensor(words.view(np.int32), device),
+        scale=_tensor(np.asarray(scale, np.float32), device),
+        zero=int(zero), col_sum=_tensor(np.asarray(col_sum, np.int32),
+                                        device),
+        n=int(n), spec=QuantSpec(bits=spec.bits, symmetric=spec.symmetric,
+                                 group_size=spec.group_size))

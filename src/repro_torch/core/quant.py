@@ -1,0 +1,132 @@
+"""Low-bit quantization substrate (port of `repro.core.quant`).
+
+MVDRAM operates on low-bit (1..8 bit) unsigned codes with a zero-point
+offset; the signed result is recovered on the processor side:
+
+    a = a_u - z_a,  w = w_u - z_w
+    o = Σ a_u w_u  -  z_a Σ w_u  -  z_w Σ a_u  +  N z_a z_w
+
+Codes and scales here are bit-for-bit those of the JAX package: the scale is
+`absmax / max(levels//2 - 0.5, 0.5)` taken as a true IEEE divide, and codes
+round half-to-even (`torch.round`, like `jnp.round`), all eager. A scale
+moved by one ulp flips codes, so nothing here may be fused or reassociated.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """How a tensor is quantized.
+
+    bits:        1..8
+    symmetric:   if True zero_point = 2^(bits-1) (mid), scale covers absmax;
+                 if False min/max asymmetric.
+    group_size:  group length along the reduction axis; -1 = per-column.
+    """
+
+    bits: int = 4
+    symmetric: bool = True
+    group_size: int = -1
+
+    @property
+    def levels(self) -> int:
+        return 1 << self.bits
+
+    @property
+    def zero_point(self) -> int:
+        return (1 << (self.bits - 1)) if self.bits > 1 else 0
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """Unsigned quantized tensor + metadata.
+
+    values:  uint8 codes in [0, 2^bits), (N, M) for weights (N = reduction
+             dim) or (..., N) for activations.
+    scale:   f32, (G, M) for weights with G groups, (..., 1) for activations.
+    zero:    integer zero point (static).
+    col_sum: int32 Σ_j values[j, m] per output column (weights only).
+    """
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    zero: int
+    spec: QuantSpec
+    col_sum: Optional[torch.Tensor] = None
+
+    @property
+    def bits(self) -> int:
+        return self.spec.bits
+
+
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as an IEEE divide. PyTorch's CUDA division by a Python scalar
+    multiplies by the scalar's reciprocal, which can move the result by one
+    ulp; dividing by a tensor of the same value does not."""
+    return x / torch.full_like(x, c)
+
+
+def _group_reshape(x: torch.Tensor, group_size: int):
+    """(N, M) -> (G, gs, M) view along the reduction dim."""
+    n = x.shape[0]
+    gs = n if group_size in (-1, 0) else group_size
+    if n % gs:
+        raise ValueError(f"reduction dim {n} not divisible by group {gs}")
+    return x.reshape(n // gs, gs, *x.shape[1:]), gs
+
+
+def quantize_weights(w: torch.Tensor, spec: QuantSpec) -> QuantizedTensor:
+    """Quantize a (N, M) weight matrix (N = reduction dim) to unsigned
+    codes."""
+    if w.ndim != 2:
+        raise ValueError(f"weights must be (N, M), got {tuple(w.shape)}")
+    wg, _gs = _group_reshape(w.to(torch.float32), spec.group_size)
+    if spec.symmetric:
+        absmax = wg.abs().amax(dim=1, keepdim=True)          # (G, 1, M)
+        scale = _true_div(absmax, max(spec.levels // 2 - 0.5, 0.5))
+    else:
+        lo = wg.amin(dim=1, keepdim=True)
+        hi = wg.amax(dim=1, keepdim=True)
+        scale = _true_div(hi - lo, float(max(spec.levels - 1, 1)))
+    zero = spec.zero_point if spec.symmetric else spec.levels // 2
+    q = torch.round(wg / scale.clamp_min(1e-12)) + zero
+    q = q.clamp(0, spec.levels - 1).to(torch.uint8).reshape(w.shape)
+    col_sum = q.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    return QuantizedTensor(values=q, scale=scale[:, 0], zero=int(zero),
+                           spec=spec, col_sum=col_sum)
+
+
+def quantize_activations(a: torch.Tensor, spec: QuantSpec
+                         ) -> QuantizedTensor:
+    """Quantize activations (..., N) per row (per token) to unsigned
+    codes."""
+    af = a.to(torch.float32)
+    if spec.symmetric:
+        absmax = af.abs().amax(dim=-1, keepdim=True)
+        scale = _true_div(absmax, max(spec.levels // 2 - 0.5, 0.5))
+        zero = spec.zero_point
+    else:
+        lo = af.amin(dim=-1, keepdim=True)
+        hi = af.amax(dim=-1, keepdim=True)
+        scale = _true_div(hi - lo, float(max(spec.levels - 1, 1)))
+        zero = spec.levels // 2
+    q = (torch.round(af / scale.clamp_min(1e-12)) + zero
+         ).clamp(0, spec.levels - 1).to(torch.uint8)
+    return QuantizedTensor(values=q, scale=scale, zero=int(zero), spec=spec)
+
+
+def dequantize_weights(qt: QuantizedTensor) -> torch.Tensor:
+    """Back to f32 (N, M)."""
+    n, m = qt.values.shape
+    g = qt.scale.shape[0]
+    vg = qt.values.reshape(g, n // g, m).to(torch.float32)
+    return ((vg - qt.zero) * qt.scale[:, None, :]).reshape(n, m)
+
+
+def dequantize_activations(qt: QuantizedTensor) -> torch.Tensor:
+    return (qt.values.to(torch.float32) - qt.zero) * qt.scale

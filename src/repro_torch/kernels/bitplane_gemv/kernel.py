@@ -1,0 +1,106 @@
+"""Wrappers of the per-leaf bit-plane GeMV CUDA kernels (`csrc/
+bitplane_gemv.cu`): B1 `gemv_bs` (integer activation codes) and B3
+`gemv_f` (float activations), the counterparts of the JAX package's
+`gemv_bs_pallas` and `gemv_f_pallas`.
+
+A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor goes
+to the plain version in `ref.py`. There is no other fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import build
+from . import ref
+
+#: launches of each CUDA kernel (the plain versions count in ref.CALLS)
+LAUNCHES = {"gemv_bs": 0, "gemv_f": 0}
+
+MAX_BN = 512   # the kernels stage at most 16 words per reduction tile
+MAX_BITS = 8
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_inputs(what: str, a, planes, scale_tiles, a_dtype, *, q: int,
+                 bn: int, bits: tuple = ()) -> None:
+    """Device, dtype, shape and contiguity checks shared by the wrappers."""
+    dev = a.device
+    for name, t, dt in (("activations", a, a_dtype),
+                        ("planes", planes, torch.int32),
+                        ("scales", scale_tiles, torch.float32)):
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, activations "
+                             f"on {dev}")
+        if t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if bn % 32 or not 32 <= bn <= MAX_BN:
+        raise ValueError(f"{what}: bn={bn} must be a multiple of 32 in "
+                         f"[32, {MAX_BN}]")
+    for name, v in (("q", q),) + bits:
+        if not 1 <= v <= MAX_BITS:
+            raise ValueError(f"{what}: {name}={v} outside [1, {MAX_BITS}]")
+
+
+def _check_gemv(what, a, planes, scale_tiles, q, bn):
+    b, n = a.shape
+    m = planes.shape[-1]
+    words = planes.shape[1] if planes.ndim == 3 else -1
+    if n % bn or planes.ndim != 3 or planes.shape[0] != q \
+            or not (n - bn) // 32 < words <= n // 32:
+        raise ValueError(f"{what}: planes {tuple(planes.shape)} do not fit "
+                         f"q={q} and activations padded to N={n} (bn={bn})")
+    if tuple(scale_tiles.shape) != (n // bn, m):
+        raise ValueError(f"{what}: scales {tuple(scale_tiles.shape)} != "
+                         f"{(n // bn, m)}")
+    return b, n, words, m
+
+
+def gemv_bs(a_codes, planes, scale_tiles, *, q: int, p: int, z_a: int,
+            z_w: int, bn: int, fidelity: str = "code") -> torch.Tensor:
+    """a_codes (B, N) uint8 padded to a multiple of bn with z_a; planes
+    (q, W, M) int32, the leaf's own, W = ceil(n/32) words (the kernel reads
+    words past W as zero bits); scale_tiles (N/bn, M) f32 → (B, M) f32,
+    un-activation-scaled. `fidelity` picks the plain version's schedule;
+    the kernel always runs the bit-serial one (identical integers)."""
+    if fidelity not in ("code", "bitserial"):
+        raise ValueError(
+            f"fidelity must be 'code' or 'bitserial', got {fidelity!r} "
+            f"(a_codes shape {tuple(a_codes.shape)})")
+    if not a_codes.is_cuda:
+        return ref.gemv_bs_ref(a_codes, planes, scale_tiles, q=q, p=p,
+                               z_a=z_a, z_w=z_w, bn=bn, fidelity=fidelity)
+    _check_inputs("gemv_bs", a_codes, planes, scale_tiles, torch.uint8, q=q,
+                 bn=bn, bits=(("p", p),))
+    b, n, words, m = _check_gemv("gemv_bs", a_codes, planes, scale_tiles,
+                                 q, bn)
+    out = torch.empty((b, m), dtype=torch.float32, device=a_codes.device)
+    lib = build.library("bitplane_gemv")
+    LAUNCHES["gemv_bs"] += 1
+    build.check(lib.gemv_bs_launch(
+        a_codes.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
+        out.data_ptr(), b, n, words, m, q, p, z_a, z_w, bn, _stream()),
+        "gemv_bs")
+    return out
+
+
+def gemv_f(a, planes, scale_tiles, *, q: int, zero: int,
+           bn: int) -> torch.Tensor:
+    """a (B, N) f32 padded to a multiple of bn with 0; planes and
+    scale_tiles as `gemv_bs` → (B, M) f32."""
+    if not a.is_cuda:
+        return ref.gemv_f_ref(a, planes, scale_tiles, q=q, zero=zero, bn=bn)
+    _check_inputs("gemv_f", a, planes, scale_tiles, torch.float32, q=q,
+                 bn=bn)
+    b, n, words, m = _check_gemv("gemv_f", a, planes, scale_tiles, q, bn)
+    out = torch.empty((b, m), dtype=torch.float32, device=a.device)
+    lib = build.library("bitplane_gemv")
+    LAUNCHES["gemv_f"] += 1
+    build.check(lib.gemv_f_launch(
+        a.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
+        out.data_ptr(), b, n, words, m, q, zero, bn, _stream()), "gemv_f")
+    return out

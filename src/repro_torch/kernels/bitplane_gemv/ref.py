@@ -1,0 +1,130 @@
+"""Plain PyTorch versions of the bit-plane GeMV kernels, shape for shape.
+
+Each function computes exactly what its CUDA kernel computes, on the same
+padded inputs, and is what a wrapper runs for CPU tensors. The tests hold
+these against the JAX package; `chip_smoke.py` holds the kernels against
+these on the card.
+
+Rounding rule of the integer kernels (B1, B2). Each reduction tile's
+correction is an exact integer; the epilogue folds it into the output as
+ONE fused multiply-add per tile, in ascending tile order:
+
+    out = fma(f32(corr_t), scale_t, out)
+
+which is what XLA does on the CPU for the JAX package's `out += corr·scale`.
+Here that step is emulated in float64: the product of two 24-bit
+significands is exact in float64, so `(corr·scale + out)` rounds once to
+float64 and once to float32 (a double rounding that differs from a true fma
+only when the float64 sum lands exactly on a float32 midpoint). The
+activation-scale multiply afterwards stays a separate float32 multiply.
+
+The integer dots run in float64 too: every partial sum is an integer far
+below 2^53, so they are exact, and float64 matmuls exist on both devices
+(integer matmuls do not on CUDA).
+"""
+from __future__ import annotations
+
+import torch
+
+#: calls of each plain version — a run on the card shows that the main path
+#: never reached them (only `chip_smoke.py`'s comparisons do)
+CALLS = {"gemv_bs": 0, "gemv_f": 0, "program_gemv": 0}
+
+
+def _unpack_codes(planes: torch.Tensor, q: int, dtype) -> torch.Tensor:
+    """(..., q, W, M) int32 planes → (..., W*32, M) codes Σ_i 2^i W^(i)."""
+    *lead, _q, w, m = planes.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    codes = None
+    for i in range(q):
+        bits = (planes[..., i, :, None, :] >> shifts[:, None]) & 1
+        bits = bits.to(dtype) * float(1 << i)
+        codes = bits if codes is None else codes + bits
+    return codes.reshape(*lead, w * 32, m)
+
+
+def _fma_chain(corr: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """corr (..., T, B, M) exact integers (float64), scales (..., T, 1, M)
+    f32 → Σ_t in ascending order as `out = fma(f32(corr_t), scale_t, out)`."""
+    c32 = corr.to(torch.float32).to(torch.float64)
+    s64 = scales.to(torch.float64)
+    out = torch.zeros_like(c32[..., 0, :, :], dtype=torch.float32)
+    for t in range(corr.shape[-3]):
+        out = (c32[..., t, :, :] * s64[..., t, :, :]
+               + out.to(torch.float64)).to(torch.float32)
+    return out
+
+
+def _pad_words(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """(q, W, M) leaf planes → (q, n/32, M), zero words appended."""
+    pad = n // 32 - planes.shape[1]
+    return torch.nn.functional.pad(planes, (0, 0, 0, pad)) if pad else planes
+
+
+def gemv_bs_ref(a_codes, planes, scale_tiles, *, q: int, p: int, z_a: int,
+                z_w: int, bn: int, fidelity: str = "code") -> torch.Tensor:
+    """Same contract as `kernel.gemv_bs`: a_codes (B, N) uint8 padded with
+    z_a; planes (q, W, M) int32 with W ≤ N/32 (missing words are zero
+    bits); scale_tiles (N/bn, M) f32 → (B, M). `fidelity="code"` takes one
+    dot per weight plane against the codes, `"bitserial"` the q·p dots of
+    the decomposed planes — identical integers."""
+    CALLS["gemv_bs"] += 1
+    b, n = a_codes.shape
+    m = planes.shape[-1]
+    t = n // bn
+    planes = _pad_words(planes, n)
+    a = a_codes.to(torch.int64)
+    a_t = (a & ((1 << p) - 1)).reshape(b, t, bn).transpose(0, 1)
+    if fidelity == "code":
+        w = _unpack_codes(planes, q, torch.float64).reshape(t, bn, m)
+        acc = torch.matmul(a_t.to(torch.float64), w)          # (t, B, M)
+    else:
+        acc = 0
+        for i in range(q):
+            w_i = _unpack_codes(planes[i:i + 1], 1, torch.float64)
+            w_i = w_i.reshape(t, bn, m)
+            for k in range(p):
+                a_k = ((a_t >> k) & 1).to(torch.float64)
+                acc = acc + float(1 << (i + k)) * torch.matmul(a_k, w_i)
+        w = _unpack_codes(planes, q, torch.float64).reshape(t, bn, m)
+    col_sum = w.sum(dim=1, keepdim=True)                       # (t, 1, M)
+    sum_a = a.reshape(b, t, bn).sum(-1).T[..., None].to(torch.float64)
+    corr = acc - z_a * col_sum - z_w * sum_a + bn * z_a * z_w
+    return _fma_chain(corr, scale_tiles[:, None, :])
+
+
+def gemv_f_ref(a, planes, scale_tiles, *, q: int, zero: int,
+               bn: int) -> torch.Tensor:
+    """Same contract as `kernel.gemv_f`: a (B, N) f32 padded with 0;
+    planes and scale_tiles as `gemv_bs_ref` → (B, M) f32."""
+    CALLS["gemv_f"] += 1
+    b, n = a.shape
+    m = planes.shape[-1]
+    t = n // bn
+    planes = _pad_words(planes, n)
+    a_t = a.to(torch.float32).reshape(b, t, bn).transpose(0, 1)  # (t,B,bn)
+    acc = None
+    for i in range(q):
+        w_i = _unpack_codes(planes[i:i + 1], 1, torch.float32)
+        part = torch.matmul(a_t, w_i.reshape(t, bn, m)) * float(1 << i)
+        acc = part if acc is None else acc + part
+    corr = acc - zero * a_t.sum(-1, keepdim=True)               # (t, B, M)
+    return torch.einsum("tbm,tm->bm", corr, scale_tiles.to(torch.float32))
+
+
+def program_gemv_ref(codes_t, planes_t, scale_t, params_t, *, q_max: int,
+                     p_max: int, bn: int) -> torch.Tensor:
+    """Same contract as `program.program_gemv`: codes_t (S, NT, B, BN)
+    uint8; planes_t (S, NT, q_max, BN/32, BM) int32; scale_t (S, NT, 1, BM)
+    f32; params_t (S, NT, 4) int32 [z_a, z_w, valid, layer] → (S, B, BM).
+    `bn` is the padded envelope BN, as in the kernel's epilogue."""
+    CALLS["program_gemv"] += 1
+    w = _unpack_codes(planes_t, q_max, torch.float64)      # (S, NT, BN, BM)
+    a = codes_t.to(torch.int64)
+    acc = torch.matmul((a & ((1 << p_max) - 1)).to(torch.float64), w)
+    col_sum = w.sum(dim=-2, keepdim=True)                  # (S, NT, 1, BM)
+    sum_a = a.sum(-1, keepdim=True).to(torch.float64)      # (S, NT, B, 1)
+    z_a = params_t[..., 0, None, None].to(torch.float64)
+    z_w = params_t[..., 1, None, None].to(torch.float64)
+    corr = acc - z_a * col_sum - z_w * sum_a + bn * z_a * z_w
+    return _fma_chain(corr, scale_t)

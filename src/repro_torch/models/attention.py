@@ -1,0 +1,222 @@
+"""Grouped-query attention (port of the GQA half of the JAX package's
+`models/attention.py`): a full-sequence path (prefill) and a one-token
+cached path (decode).
+
+KV caches are position-stamped ring buffers: alongside k/v a `positions`
+tensor (init −1); sliding-window ("local") layers allocate only `window`
+slots and rotate. Masks come from the stamped positions, never from slot
+order. The decode step writes the new token into the cache IN PLACE, where
+the JAX package returns an updated copy (donated under jit).
+
+MLA (deepseek-v2) waits for the rest of the model zoo (ROADMAP A7); the
+fused decode-attention kernel B4 for the next slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .config import AttnConfig
+from .layers import (apply_rope, dense, dense_group, rope_frequencies,
+                     softcap)
+
+NEG_INF = -2.3819763e38  # ~ lowest bf16-representable; used pre-softmax
+
+FLASH_THRESHOLD = 2048   # use blocked attention above this sequence length
+FLASH_BLOCK = 1024
+FLASH_Q_CHUNK = 4096     # long prefills also chunk the query axis
+
+
+def _causal_mask(s_q: int, s_k: int, window: Optional[int],
+                 device=None) -> torch.Tensor:
+    """(s_q, s_k) additive mask; queries are the LAST s_q of s_k
+    positions."""
+    qi = torch.arange(s_q, device=device)[:, None] + (s_k - s_q)
+    kj = torch.arange(s_k, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= (qi - kj) < window
+    return _additive(ok)
+
+
+def _additive(ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, torch.zeros((), device=ok.device),
+                       torch.full((), NEG_INF, device=ok.device))
+
+
+def _sdpa(q, k, v, mask, cap: Optional[float], scale: float):
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D'), mask broadcastable (B,1,Sq,Sk)."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = softcap(scores, cap) + mask
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhgst,bthv->bshgv", w, v.to(torch.float32))
+    return ctx.reshape(b, sq, h * v.shape[-1]).to(q.dtype)
+
+
+def _flash_sdpa(q, k, v, window: Optional[int], cap: Optional[float],
+                scale: float, block: int = FLASH_BLOCK):
+    """Blocked causal attention with running (max, denom, acc): peak memory
+    O(Sq·block) instead of O(Sq·Sk). Same-length q/k (prefill path). Key
+    blocks entirely in a query chunk's future are skipped — their masked
+    scores would contribute exactly zero."""
+    b, s, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    if hkv != h:                       # query head i attends kv head i//g
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    qf = q.to(torch.float32)
+    nb = -(-s // block)
+
+    def process(q_c, q_lo: int):
+        sq = q_c.shape[1]
+        q_pos = torch.arange(q_lo, q_lo + sq, device=q.device)
+        m = torch.full((b, h, sq), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, sq), device=q.device)
+        acc = torch.zeros((b, h, sq, dv), device=q.device)
+        for jb in range(nb):
+            lo = jb * block
+            if lo >= q_lo + sq:
+                break
+            k_j = k[:, lo:lo + block].to(torch.float32)
+            v_j = v[:, lo:lo + block].to(torch.float32)
+            k_pos = torch.arange(lo, lo + k_j.shape[1], device=q.device)
+            ok = k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                ok &= (q_pos[:, None] - k_pos[None, :]) < window
+            sc = torch.einsum("bshd,bthd->bhst", q_c, k_j) * scale
+            sc = softcap(sc, cap)
+            sc = torch.where(ok[None, None], sc,
+                             torch.full((), NEG_INF, device=q.device))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            acc = acc * alpha[..., None] + torch.einsum("bhst,bthv->bhsv",
+                                                        p, v_j)
+            l = l * alpha + p.sum(dim=-1)
+            m = m_new
+        return acc / l.clamp_min(1e-30)[..., None]      # (b, h, sq, dv)
+
+    if s > FLASH_Q_CHUNK and s % FLASH_Q_CHUNK == 0:
+        ctx = torch.cat([process(qf[:, c:c + FLASH_Q_CHUNK], c)
+                         for c in range(0, s, FLASH_Q_CHUNK)], dim=2)
+    else:
+        ctx = process(qf, 0)
+    return ctx.transpose(1, 2).reshape(b, s, h * dv).to(q.dtype)
+
+
+def _attend(q, k, v, window, cap, scale):
+    """Dispatch direct vs blocked attention by sequence length."""
+    s = q.shape[1]
+    if s > FLASH_THRESHOLD:
+        return _flash_sdpa(q, k, v, window, cap, scale)
+    return _sdpa(q, k, v, _causal_mask(s, s, window, q.device), cap, scale)
+
+
+def gqa_forward(x, p, acfg: AttnConfig, window: Optional[int],
+                positions: torch.Tensor, act_bits=None, impl=None,
+                return_kv: bool = False):
+    """Full-sequence self-attention. x (B,S,E); positions (S,)."""
+    b, s, _ = x.shape
+    h, hkv, d = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    q, k, v = dense_group(x, (p["wq"], p["wk"], p["wv"]),
+                          (p.get("bq"), p.get("bk"), p.get("bv")),
+                          act_bits, impl)
+    q = q.reshape(b, s, h, d)
+    k = k.reshape(b, s, hkv, d)
+    v = v.reshape(b, s, hkv, d)
+    rd = acfg.rope_dim or d
+    cos, sin = rope_frequencies(rd, acfg.rope_base, positions)
+    q = apply_rope(q, cos, sin, rd)
+    k = apply_rope(k, cos, sin, rd)
+    ctx = _attend(q, k, v, window, acfg.softcap, d ** -0.5)
+    out = dense(ctx, p["wo"], act_bits=act_bits, impl=impl)
+    return (out, (k, v)) if return_kv else out
+
+
+def _kv_quant(x):
+    """(B,S,Hkv,D) → int8 codes + per-(B,S,Hkv) f32 scale (absmax/127)."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    scale = (absmax / torch.full_like(absmax, 127.0)).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q, scale):
+    return q.to(torch.float32) * scale[..., None].to(torch.float32)
+
+
+def gqa_decode(x, p, acfg: AttnConfig, window: Optional[int], cache: dict,
+               pos, act_bits=None, impl=None, attn_impl: str = "sdpa"):
+    """One-token step. x (B,1,E); cache {k,v:(B,Sc,Hkv,D),
+    positions:(B,Sc)}, updated in place and returned.
+
+    A cache created with kv_bits=8 (keys "k_scale"/"v_scale" present)
+    stores keys/values as int8 with per-(token, head) scales."""
+    if attn_impl != "sdpa":
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} needs the decode-attention kernel B4, "
+            f"not ported yet (ROADMAP: next slice)")
+    b = x.shape[0]
+    h, hkv, d = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    sc = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    pos = pos.expand(b) if pos.ndim == 0 else pos            # per lane
+    q, k, v = dense_group(x, (p["wq"], p["wk"], p["wv"]),
+                          (p.get("bq"), p.get("bk"), p.get("bv")),
+                          act_bits, impl)
+    q = q.reshape(b, 1, h, d)
+    k = k.reshape(b, 1, hkv, d)
+    v = v.reshape(b, 1, hkv, d)
+    rd = acfg.rope_dim or d
+    cos, sin = rope_frequencies(rd, acfg.rope_base, pos[:, None])
+    q = apply_rope(q, cos, sin, rd)
+    k = apply_rope(k, cos, sin, rd)
+    slot = pos if window is None else pos % sc
+    lane = torch.arange(b, device=x.device)
+    if "k_scale" in cache:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        cache["k"][lane, slot] = kq[:, 0]
+        cache["v"][lane, slot] = vq[:, 0]
+        cache["k_scale"][lane, slot] = ks[:, 0]
+        cache["v_scale"][lane, slot] = vs[:, 0]
+        k_use = _kv_dequant(cache["k"], cache["k_scale"]).to(x.dtype)
+        v_use = _kv_dequant(cache["v"], cache["v_scale"]).to(x.dtype)
+    else:
+        cache["k"][lane, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][lane, slot] = v[:, 0].to(cache["v"].dtype)
+        k_use, v_use = cache["k"], cache["v"]
+    cache["positions"][lane, slot] = pos.to(cache["positions"].dtype)
+    pos_all = cache["positions"]
+    ok = (pos_all >= 0) & (pos_all <= pos[:, None])
+    if window is not None:
+        ok &= (pos[:, None] - pos_all) < window
+    # (B,1,1,1,Sc): lane dim aligned with the scores' (b,hkv,g,sq,t)
+    mask = _additive(ok)[:, None, None, None, :]
+    ctx = _sdpa(q, k_use, v_use, mask, acfg.softcap, d ** -0.5)
+    out = dense(ctx, p["wo"], act_bits=act_bits, impl=impl)
+    return out, cache
+
+
+def gqa_cache_init(batch: int, slots: int, acfg: AttnConfig, dtype,
+                   kv_bits=None, device=None) -> dict:
+    hkv, d = acfg.num_kv_heads, acfg.head_dim
+    cache = {"positions": torch.full((batch, slots), -1, dtype=torch.int32,
+                                     device=device)}
+    if kv_bits == 8:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((batch, slots, hkv, d),
+                                      dtype=torch.int8, device=device)
+            cache[f"{name}_scale"] = torch.zeros((batch, slots, hkv),
+                                                 device=device)
+    else:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((batch, slots, hkv, d), dtype=dtype,
+                                      device=device)
+    return cache

@@ -23,6 +23,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: naive-simulator oracle tests (excluded by default; "
                    "run with -m slow)")
+    config.addinivalue_line(
+        "markers", "cuda: runs CUDA kernels on an NVIDIA GPU (skips where "
+                   "there is none)")
     # Default to "not slow" only when the user passed no -m at all, so an
     # explicit `-m ""` / `-m "slow or not slow"` can still select everything.
     m_passed = any(a.startswith("-m") or a.startswith("--markexpr")
