@@ -19,7 +19,27 @@ Phases, each printing one JSON line:
      logits must equal, bitwise, those of the same model on the plain
      versions;
   4. slice, act_bits=None: the same through B3;
-  5. the kernels line, then the card's name and power limit, then the
+  5. kernels: B4 decode_attention against its plain version at llama2-7b's
+     full context (B = 4 lanes, 4096 stamped slots, 32 heads of 128) with
+     a bf16 and an int8 cache, and on small GQA, windowed ring-buffer and
+     no-valid-slot shapes (rtol/atol 1e-5 for a float32 output, one bf16
+     ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
+     decode shapes, q2, and one grouped shape (rtol 1e-5, atol
+     1e-5·max|plain|); each timed beside its plain version, its bound and
+     a PyTorch yardstick the port never calls (scaled_dot_product_attention
+     on the bf16 cache; a bf16 torch.matmul);
+  6. slice, act_bits=4, int8 KV cache over 4096 slots, attention through
+     B4: `Model(attn_impl="kernel")` on the engine's parameters serves the
+     same requests; B4 must run 32 times a decode step, B1 and B2 run, no
+     plain version. A replay holds B4 against its plain version at every
+     layer of every step on the path's own inputs; each decode step's
+     logits are compared with the same model on `attn_impl="sdpa"` fed the
+     same tokens: reported at act_bits=4 (chaotic there, see PERF.md), held
+     to 5 % of max|logit| with float activations;
+  7. slice, the baseline: every linear a q2 `QuantizedTensor` (float
+     activations) through B5, 225 launches a step and no plain version;
+     its prefill logits within 5 % of max|logit| of the plain versions';
+  8. the kernels line, then the card's name and power limit, then the
      result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
@@ -48,12 +68,18 @@ REPLACES = {
     "gemv_bs": "src/repro/kernels/bitplane_gemv/kernel.py:155",
     "program_gemv": "src/repro/kernels/bitplane_gemv/program.py:257",
     "gemv_f": "src/repro/kernels/bitplane_gemv/kernel.py:84",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:72",
+    "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:45",
 }
 SOURCES = {
     "gemv_bs": "src/repro_torch/csrc/bitplane_gemv.cu",
     "program_gemv": "src/repro_torch/csrc/program_gemv.cu",
     "gemv_f": "src/repro_torch/csrc/bitplane_gemv.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
 }
+CONTEXT = 4096             # llama2-7b's published context (KV-cache slots)
+LOGIT_RTOL = 0.05          # of max|logit|, for paths that are not bitwise
 
 
 def emit(obj) -> None:
@@ -289,15 +315,25 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
 # phases 3 and 4: the slice, full-width llama2-7b
 # ---------------------------------------------------------------------------
 
-def counts() -> dict:
+def _counters() -> tuple:
+    """(launch counters, plain-version counters) of every kernel."""
     from repro_torch.kernels.bitplane_gemv import kernel, program, ref
-    return {"launches": {**kernel.LAUNCHES, **program.LAUNCHES},
-            "plain": dict(ref.CALLS)}
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.quant_matmul import ref as qref
+    return ((kernel.LAUNCHES, program.LAUNCHES, dk.LAUNCHES, qk.LAUNCHES),
+            (ref.CALLS, dref.CALLS, qref.CALLS))
+
+
+def counts() -> dict:
+    launches, plain = _counters()
+    return {"launches": {k: v for d in launches for k, v in d.items()},
+            "plain": {k: v for d in plain for k, v in d.items()}}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.bitplane_gemv import kernel, program, ref
-    for d in (kernel.LAUNCHES, program.LAUNCHES, ref.CALLS):
+    for d in sum(_counters(), ()):
         for k in d:
             d[k] = 0
 
@@ -386,6 +422,413 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: B4 and B5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _held(name, got, want) -> float:
+    """Max |Δ| of a kernel's output against its plain version's, raising
+    outside the stated tolerance: rtol/atol 1e-5 for a float32 output
+    (tests/test_decode_kernel.py:42); for a bf16 output one bf16 ulp
+    (2^-7 relative: both round float32 results that differ in the last
+    bits) plus 1e-5·max|plain|."""
+    import torch
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if got.dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * w.abs()
+    else:
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) \
+            + 1e-5 * float(w.abs().max())
+    if not bool(torch.isfinite(g).all()) or not bool(((g - w).abs()
+                                                      <= tol).all()):
+        raise AssertionError(f"{name}: kernel outside tolerance of the "
+                             f"plain version (max|Δ| {err})")
+    return err
+
+
+def _ring_stamps(pos, slots: int):
+    """Stamps of a ring buffer of `slots` slots per lane that has seen
+    positions 0..pos: slot t holds the newest position ≡ t mod slots, or
+    -1 if there is none yet."""
+    import torch
+    t = torch.arange(slots, device=pos.device, dtype=torch.int32)
+    st = pos[:, None] - (pos[:, None] - t[None, :]) % slots
+    return torch.where(st >= 0, st, torch.full_like(st, -1))
+
+
+# (name, B, S, H, Hkv, D, q/cache type, window, count per decode layer):
+# the full-context llama2-7b shapes (the slice reads the int8 one), then
+# small GQA, windowed ring-buffer and no-valid-slot shapes
+DECODE_SHAPES = [
+    ("llama2-7b bf16 cache", 4, CONTEXT, 32, 32, 128, "bf16", None, 0),
+    ("llama2-7b int8 cache", 4, CONTEXT, 32, 32, 128, "int8", None, 1),
+    ("gqa Hkv=8 f32", 2, 1000, 32, 8, 128, "f32", None, 0),
+    ("ring window=1024 int8", 4, 1024, 32, 32, 128, "int8", 1024, 0),
+    ("lane without valid slot f32", 2, 512, 32, 32, 128, "f32", None, 0),
+]
+
+
+def _decode_inputs(gen, b, s, h, hkv, d, kind, window):
+    import torch
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(dt)
+    kf = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    vf = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    ks = vs = None
+    if kind == "int8":
+        ks = kf.abs().amax(-1) / 127 + 1e-8
+        vs = vf.abs().amax(-1) / 127 + 1e-8
+        k = torch.round(kf / ks[..., None]).to(torch.int8)
+        v = torch.round(vf / vs[..., None]).to(torch.int8)
+    else:
+        k, v = kf.to(dt), vf.to(dt)
+    del kf, vf
+    if window:                      # lanes at several ring positions
+        pos = torch.tensor([5000, 4100, 1500, 700][:b], device="cuda",
+                           dtype=torch.int32)
+        stamps = _ring_stamps(pos, s)
+    else:
+        pos = torch.full((b,), s - 1, device="cuda", dtype=torch.int32)
+        stamps = torch.arange(s, device="cuda", dtype=torch.int32).repeat(
+            b, 1)
+        if kind == "f32" and b == 2 and hkv == h:
+            pos[0] = 300            # lane 0 partly filled, lane 1 empty
+            stamps[0] = torch.where(stamps[0] <= 300, stamps[0], -1)
+            stamps[1] = -1
+    return pos, q, k, v, stamps, ks, vs
+
+
+def phase_decode_attention() -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for name, b, s, h, hkv, d, kind, window, count in DECODE_SHAPES:
+        pos, q, k, v, stamps, ks, vs = _decode_inputs(gen, b, s, h, hkv, d,
+                                                      kind, window)
+        args = (pos, q, k, v, stamps, ks, vs)
+        kw = dict(scale=d ** -0.5, window=window)
+        got = kernel.decode_attention(*args, **kw)
+        want = ref.decode_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = _held(f"decode_attention {name}", got, want)
+        caches = [(k, v, ks, vs)] + [
+            tuple(None if t is None else t.clone() for t in (k, v, ks, vs))
+            for _ in range(copies_for(nbytes(k, v)) - 1)]
+        ms = graph_ms([lambda c=c: kernel.decode_attention(
+            pos, q, c[0], c[1], stamps, c[2], c[3], **kw) for c in caches],
+            20)
+        del caches
+        plain = eager_ms(lambda: ref.decode_attention_ref(*args, **kw))
+        # what this run's data needs: a lane with a valid slot reads only
+        # its valid slots' K, V (and scales), an empty lane every slot
+        ok = ref.slot_mask(pos, stamps, window)
+        read = torch.where(ok.any(1), ok.sum(1), torch.full_like(pos, s))
+        slots = int(read.sum())
+        per_slot = hkv * d * k.element_size() * 2 + (8 * hkv if ks is not
+                                                     None else 0)
+        t_bound, by = bound(slots * per_slot + nbytes(pos, q, stamps),
+                            nbytes(got), 4.0 * h * d * slots, "float32")
+        # yardstick: SDPA on the bf16 cache (K/V heads expanded for GQA and
+        # the slot mask passed where some slot is masked)
+        kb = k.float() * ks[..., None] if ks is not None else k.float()
+        vb = v.float() * vs[..., None] if vs is not None else v.float()
+        kb = kb.to(torch.bfloat16).repeat_interleave(h // hkv, 2)
+        vb = vb.to(torch.bfloat16).repeat_interleave(h // hkv, 2)
+        qb = q.to(torch.bfloat16)[:, :, None]
+        mask = None if bool(ok.all()) else ok[:, None, None, :]
+        lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+            qb, kb.transpose(1, 2), vb.transpose(1, 2), attn_mask=mask)],
+            20)
+        del kb, vb
+        rows.append(dict(shape=name, b=b, s=s, h=h, hkv=hkv, d=d,
+                         cache=kind, window=window, slots_read=slots,
+                         count=count, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=t_bound, bound_by=by,
+                         library_ms=lib_ms))
+        del args, k, v
+    for r in rows:
+        emit({"phase": "kernel_check", "kernel": "decode_attention", **r})
+    return rows
+
+
+# (n, m, group size, calls per decode layer; lm_head: per step)
+QMM_SHAPES = {"q/k/v/wo 4096→4096": (4096, 4096, -1, 4),
+              "up/gate 4096→11008": (4096, 11008, -1, 2),
+              "down 11008→4096": (11008, 4096, -1, 1),
+              "lm_head 4096→32000": (4096, 32000, -1, 1),
+              "4096→4096 gs=128": (4096, 4096, 128, 0)}
+
+
+def phase_quant_matmul(weight_bits: int) -> list:
+    import torch
+    from repro_torch.core.quant import QuantSpec, quantize_weights
+    from repro_torch.kernels.bitplane_gemv.ops import _pad_axis, _pick_blocks
+    from repro_torch.kernels.quant_matmul import kernel, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+
+    def leaf(n, m, gs):
+        w = torch.randn((n, m), generator=gen, device="cuda")
+        wq = quantize_weights(w, QuantSpec(bits=weight_bits, group_size=gs))
+        ops.packed_codes(wq)
+        return wq
+
+    for name, (n, m, gs, count) in QMM_SHAPES.items():
+        wq = leaf(n, m, gs)
+        x = torch.randn((B, n), generator=gen, device="cuda")
+        bn, _ = _pick_blocks(n, m, None, None, gs if gs > 0 else None)
+        a = _pad_axis(x, bn, 1).contiguous()
+        scale_t = ops._expand_scales_qt(wq, bn, a.shape[1]).contiguous()
+        kw = dict(q=weight_bits, zero=wq.zero, bn=bn)
+        got = kernel.quant_matmul(a, wq.packed, scale_t, **kw)
+        want = ref.quant_matmul_ref(a, wq.packed, scale_t, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"quant_matmul {name}: max|Δ| {err} "
+                                 f"outside rtol/atol 1e-5")
+        copies = [wq] + [leaf(n, m, gs) for _ in
+                         range(copies_for(nbytes(wq.packed)) - 1)]
+        ms = graph_ms([lambda c=c: kernel.quant_matmul(a, c.packed, scale_t,
+                                                       **kw)
+                       for c in copies], 50)
+        del copies
+        plain = eager_ms(lambda: ref.quant_matmul_ref(a, wq.packed, scale_t,
+                                                      **kw))
+        # the packed codes and the leaf's scales once, the activations
+        # and the output
+        t_bound, by = bound(nbytes(wq.packed, wq.scale, x), nbytes(got),
+                            2.0 * B * n * m, "float32")
+        wlib = [torch.randn((n, m), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+                for _ in range(copies_for(n * m * 2))]
+        xb = x.to(torch.bfloat16)
+        lib_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in wlib],
+                          20)
+        del wlib
+        rows.append(dict(shape=name, n=n, m=m, group_size=gs, count=count,
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    for r in rows:
+        emit({"phase": "kernel_check", "kernel": "quant_matmul", **r})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: B4 on the decode path, the int8 cache at full context
+# ---------------------------------------------------------------------------
+
+def teacher_forced(model, params, prompts, toks) -> list:
+    """The logits of every decode step of `model` fed the tokens `toks`
+    after the prompts."""
+    import torch
+    steps = []
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": prompts}, CONTEXT)
+        for t in range(PROMPT, toks.shape[1] - 1):
+            logits, cache = model.decode_step(params, cache, toks[:, t], t)
+            steps.append(logits)
+    return steps
+
+
+def greedy(model, params, prompts, new: int):
+    """`ServeEngine.generate`'s greedy loop on a `Model`: (tokens, the
+    logits of every decode step)."""
+    import torch
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts}, CONTEXT)
+        cur = torch.argmax(logits, dim=-1)
+        toks, steps = [prompts, cur[:, None]], []
+        for t in range(new - 1):
+            logits, cache = model.decode_step(params, cache, cur,
+                                              prompts.shape[1] + t)
+            steps.append(logits)
+            cur = torch.argmax(logits, dim=-1)
+            toks.append(cur[:, None])
+    return torch.cat(toks, dim=1), steps
+
+
+def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
+    """act_bits=4 with an int8 KV cache of CONTEXT slots: the engine's
+    parameters and linears, decode attention through B4. Counts zeroed
+    just before the run, read just after; then the checks of the module
+    docstring's phase 6."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, qparams, max_seq=CONTEXT, batch_slots=B,
+                      quantized=True, act_bits=4, kv_bits=8, device="cuda")
+    kern = Model(cfg, act_bits=4, impl=eng.model.impl, kv_bits=8,
+                 attn_impl="kernel")
+    greedy(kern, eng.params, prompts[:, :4], 2)        # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, steps = greedy(kern, eng.params, prompts, NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen = counts()
+    resident = resident_gb(eng)
+    want = cfg.num_layers * (NEW - 1)
+    if seen["launches"]["decode_attention"] != want:
+        raise AssertionError(f"B4 launched {seen['launches']} times, not "
+                             f"{want} (32 a decode step)")
+    for k in ("gemv_bs", "program_gemv"):
+        if seen["launches"][k] <= 0:
+            raise AssertionError(f"{k} never launched ({seen})")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"a plain version ran on the card ({seen})")
+    if not torch.equal(toks[:, :PROMPT], prompts):
+        raise AssertionError("prompt tokens not echoed")
+    # B4 against its plain version at every layer of every step, on the
+    # path's own inputs (a replay, after the counts were read)
+    real, held = dops.decode_attention, []
+
+    def checked(*args, impl="kernel", **kw):
+        got = real(*args, impl=impl, **kw)
+        held.append(_held("decode_attention on the path", got,
+                          real(*args, impl="reference", **kw)))
+        return got
+
+    dops.decode_attention = checked
+    try:
+        teacher_forced(kern, eng.params, prompts, toks)
+    finally:
+        dops.decode_attention = real
+    # logits against the same model on attn_impl="sdpa" (the cache widened
+    # to bf16 where B4 widens it to f32), fed the same tokens. With 4-bit
+    # activations they are reported only: the quantizer's absmax tie turns
+    # any last-bit difference into a different code, and a one-ulp change of
+    # a few cache entries moves these logits by a third of their size
+    # (PERF.md §6). With float activations (B3 in every linear) they
+    # are held to 5 % of max|logit|, the rule of PERF.md §2.
+    spread = {}
+    for ab in (4, None):
+        got = steps if ab == 4 else teacher_forced(
+            Model(cfg, act_bits=None, impl=eng.model.impl, kv_bits=8,
+                  attn_impl="kernel"), eng.params, prompts, toks)
+        want = teacher_forced(Model(cfg, act_bits=ab, impl=eng.model.impl,
+                                    kv_bits=8), eng.params, prompts, toks)
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"act_bits={ab}: non-finite logits")
+        spread[ab] = {
+            "max_abs_err": [float((g - w).abs().max())
+                            for g, w in zip(got, want)],
+            "max_abs_logit": max(float(w.abs().max()) for w in want)}
+    torch.cuda.synchronize()
+    sf = spread[None]
+    if max(sf["max_abs_err"]) > LOGIT_RTOL * sf["max_abs_logit"]:
+        raise AssertionError(f"act_bits=None: B4 decode logits differ from "
+                             f"sdpa's ({sf})")
+    out = {"phase": "slice_act_bits_4_kv8_attn_kernel",
+           "tokens_shape": list(toks.shape), "seconds": dt,
+           "tokens_per_s": B * NEW / dt, **seen, "resident": resident,
+           "kv_slots": CONTEXT,
+           "b4_vs_plain_on_path": {"calls": len(held),
+                                   "max_abs_err": max(held)},
+           "decode_logits_vs_sdpa_act_bits_4": spread[4],
+           "decode_logits_vs_sdpa_act_bits_None": sf}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the baseline, every linear a QuantizedTensor through B5
+# ---------------------------------------------------------------------------
+
+def quantized_tensor_params(params, bits: int):
+    """Every GeMV leaf (the port's QUANT_LEAF_NAMES) as a q-bit
+    QuantizedTensor, quantized matrix by matrix and stacked, its codes
+    packed once; the float leaf is dropped as soon as it is quantized."""
+    import torch
+    from repro_torch.core.quant import (QuantizedTensor, QuantSpec,
+                                        quantize_weights)
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.serve.quantize import QUANT_LEAF_NAMES
+    spec = QuantSpec(bits=bits)
+
+    def leaf(w):
+        if w.ndim == 2:
+            qt = quantize_weights(w, spec)
+        else:
+            parts = [quantize_weights(w[i], spec) for i in range(len(w))]
+            qt = QuantizedTensor(
+                values=torch.stack([p.values for p in parts]),
+                scale=torch.stack([p.scale for p in parts]),
+                zero=parts[0].zero, spec=spec,
+                col_sum=torch.stack([p.col_sum for p in parts]))
+        ops.packed_codes(qt)
+        return qt
+
+    def walk(tree):
+        for k in list(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k])
+            elif k in QUANT_LEAF_NAMES and tree[k].ndim >= 2:
+                tree[k] = leaf(tree.pop(k))
+        return tree
+
+    return walk(params)
+
+
+def phase_baseline_slice(cfg, prompts) -> dict:
+    import torch
+    from repro_torch.models.model import param_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)  # the same model
+    qt = quantized_tensor_params(init_params(param_defs(cfg), gen, "cuda"),
+                                 cfg.weight_bits)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    eng = ServeEngine(cfg, qt, max_seq=PROMPT + NEW + 1, batch_slots=B,
+                      device="cuda")
+    eng.generate(prompts[:, :4], max_new=2)              # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, max_new=NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen = counts()
+    per_pass = 7 * cfg.num_layers + 1
+    if seen["launches"]["quant_matmul"] != per_pass * NEW:
+        raise AssertionError(f"B5 launched {seen['launches']} times, not "
+                             f"{per_pass} a forward pass")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"a plain version ran on the card ({seen})")
+    if not torch.equal(toks[:, :PROMPT], prompts):
+        raise AssertionError("prompt tokens not echoed")
+    with torch.no_grad():
+        got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
+                                   eng.max_seq)
+        ref_eng = ServeEngine(cfg, qt, max_seq=PROMPT + NEW + 1,
+                              batch_slots=B, impl="reference",
+                              device="cuda")
+        want, _ = ref_eng.model.prefill(ref_eng.params,
+                                        {"tokens": prompts}, eng.max_seq)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:
+        raise AssertionError(f"B5 prefill logits differ from the plain "
+                             f"versions' (max|Δ| {err}, max|logit| {scale})")
+    out = {"phase": "slice_baseline_quant_matmul",
+           "tokens_shape": list(toks.shape), "seconds": dt,
+           "tokens_per_s": B * NEW / dt, **seen,
+           "setup_seconds": setup,
+           "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "prefill_logits_max_abs_err_vs_plain": err,
+           "max_abs_logit": scale}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -428,22 +871,30 @@ def main() -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     s4 = phase_slice(cfg, qparams, prompts, 4, ("gemv_bs", "program_gemv"))
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f",))
+    rows["decode_attention"] = phase_decode_attention()
+    rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
+    sa = phase_attn_kernel_slice(cfg, qparams, prompts)
+    del qparams                       # the baseline needs the float weights
+    torch.cuda.empty_cache()
+    sb = phase_baseline_slice(cfg, prompts)
 
     launches = {**s4["launches"]}
     launches["gemv_f"] = sf["launches"]["gemv_f"]
+    launches["decode_attention"] = sa["launches"]["decode_attention"]
+    launches["quant_matmul"] = sb["launches"]["quant_matmul"]
     # per kernel, its shapes summed as one decode layer (plus lm_head) calls
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the
-    # names PERF.md's kernel table uses, and `plane_bound_ms` is the planes
-    # alone at the memory rate
+    # names PERF.md's kernel table uses, and `plane_bound_ms` (bit-plane
+    # kernels only) is the planes alone at the memory rate
     kernels = []
     for kname, rs in rows.items():
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
+            ("plane_bound_ms",) if "plane_bound_ms" in rs[0] else ())
         row = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
-            **{key: sum(r[key] * r["count"] for r in rs)
-               for key in ("ms", "plain_ms", "bound_ms", "plane_bound_ms",
-                           "library_ms")},
+            **{key: sum(r[key] * r["count"] for r in rs) for key in keys},
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
                 r["bound_ms"] * r["count"] for r in rs
                 if r["bound_by"] == by)),

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .core.bitplane import BitplaneWeights
-from .core.quant import QuantSpec
+from .core.quant import QuantSpec, QuantizedTensor
 from .device import resolve_device
 
 
@@ -48,3 +48,20 @@ def bitplane_from_numpy(planes, scale, zero: int, col_sum, n: int, spec,
                                         device),
         n=int(n), spec=QuantSpec(bits=spec.bits, symmetric=spec.symmetric,
                                  group_size=spec.group_size))
+
+
+def quantized_from_numpy(values, scale, zero: int, spec, col_sum=None,
+                         device=None) -> QuantizedTensor:
+    """A JAX `QuantizedTensor`'s fields → the port's: uint8 codes, f32
+    scales and int32 column sums carried bit for bit (leading stack dims
+    included); `spec` is anything with `bits`, `symmetric` and
+    `group_size`."""
+    device = resolve_device(device)
+    return QuantizedTensor(
+        values=_tensor(np.asarray(values, np.uint8), device),
+        scale=_tensor(np.asarray(scale, np.float32), device),
+        zero=int(zero),
+        spec=QuantSpec(bits=spec.bits, symmetric=spec.symmetric,
+                       group_size=spec.group_size),
+        col_sum=None if col_sum is None else _tensor(
+            np.asarray(col_sum, np.int32), device))

@@ -51,6 +51,11 @@ class QuantizedTensor:
     scale:   f32, (G, M) for weights with G groups, (..., 1) for activations.
     zero:    integer zero point (static).
     col_sum: int32 Σ_j values[j, m] per output column (weights only).
+    packed:  the codes packed 32/bits to a word along N, for the
+             fused-dequant kernel B5; filled on first use by
+             `kernels.quant_matmul.ops.packed_codes` (weights only).
+
+    Layer-stacked weights carry a leading stack dim on every tensor field.
     """
 
     values: torch.Tensor
@@ -58,10 +63,25 @@ class QuantizedTensor:
     zero: int
     spec: QuantSpec
     col_sum: Optional[torch.Tensor] = None
+    packed: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def bits(self) -> int:
         return self.spec.bits
+
+    def _map(self, fn) -> "QuantizedTensor":
+        return dataclasses.replace(
+            self, values=fn(self.values), scale=fn(self.scale),
+            col_sum=None if self.col_sum is None else fn(self.col_sum),
+            packed=None if self.packed is None else fn(self.packed))
+
+    def __getitem__(self, i) -> "QuantizedTensor":
+        """Index the leading stack dim of layer-stacked weights."""
+        return self._map(lambda t: t[i])
+
+    def to(self, device) -> "QuantizedTensor":
+        return self._map(lambda t: t.to(device))
 
 
 def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C entry points of each source: name → (argtypes), all returning the
 #: launch's cudaError_t as an int
 SIGNATURES = {
@@ -39,6 +40,15 @@ SIGNATURES = {
         # params, codes, planes, scales, out, S, NT, B, BN, BM, q_max,
         # p_max, stream
         "program_gemv_launch": [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "decode_attention": {
+        # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, H, Hkv, D,
+        # q_type, kv_type, scale, window, stream
+        "decode_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    },
+    "quant_matmul": {
+        # a, words, scales, out, B, n_pad, W, M, q, zero, bn, stream
+        "quant_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 

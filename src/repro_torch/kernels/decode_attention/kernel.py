@@ -1,0 +1,89 @@
+"""Wrapper of the flash-decode CUDA kernel B4 (`csrc/decode_attention.cu`),
+the counterpart of the JAX package's `decode_attention_pallas`.
+
+A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor goes
+to the plain version in `ref.py`. There is no other fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import build
+from . import ref
+
+#: launches of the CUDA kernel (the plain version counts in ref.CALLS)
+LAUNCHES = {"decode_attention": 0}
+
+HEAD_DIMS = (32, 64, 128, 256)     # head sizes the kernel is built for
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
+    what = "decode_attention"
+    b, h, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[3] != d:
+        raise ValueError(f"{what}: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"do not fit q {tuple(q.shape)} as (B, S, Hkv, D)")
+    s, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{what}: {h} query heads not a multiple of {hkv} "
+                         f"KV heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in Q_TYPES or k.dtype not in KV_TYPES \
+            or v.dtype != k.dtype:
+        raise ValueError(f"{what}: q {q.dtype} / k {k.dtype} / v {v.dtype} "
+                         f"not supported (q in {tuple(Q_TYPES)}, k = v in "
+                         f"{tuple(KV_TYPES)})")
+    int8 = k.dtype == torch.int8
+    named = [("pos", pos, torch.int32, (b,)),
+             ("kv_positions", kv_positions, torch.int32, (b, s))]
+    if int8:
+        named += [("k_scale", k_scale, torch.float32, (b, s, hkv)),
+                  ("v_scale", v_scale, torch.float32, (b, s, hkv))]
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"{what}: scales given for a {k.dtype} cache")
+    for name, t, dt, shape in named:
+        if t is None or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} must be {dt} {shape}, got "
+                             f"{None if t is None else (t.dtype, tuple(t.shape))}")
+    for name, t in [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _, _
+                                                      in named]:
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned "
+                             f"(the kernel loads 16 bytes a thread)")
+
+
+def decode_attention(pos, q, k, v, kv_positions, k_scale, v_scale, *,
+                     scale: float, window) -> torch.Tensor:
+    """pos (B,) int32 per-lane positions; q (B, H, D) f32 or bf16; k/v
+    (B, S, Hkv, D) f32, bf16 or int8 with k_scale/v_scale (B, S, Hkv) f32
+    (None for a float cache); kv_positions (B, S) int32 stamps → (B, H, D)
+    in q's dtype. A slot counts iff 0 ≤ stamp ≤ pos (and pos − stamp <
+    window when `window` is not None)."""
+    if not q.is_cuda:
+        return ref.decode_attention_ref(pos, q, k, v, kv_positions, k_scale,
+                                        v_scale, scale=scale, window=window)
+    _check(pos, q, k, v, kv_positions, k_scale, v_scale)
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.library("decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    build.check(lib.decode_attention_launch(
+        pos.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_positions.data_ptr(),
+        0 if k_scale is None else k_scale.data_ptr(),
+        0 if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
+        b, s, h, hkv, d, Q_TYPES[q.dtype], KV_TYPES[k.dtype], float(scale),
+        -1 if window is None else int(window),
+        torch.cuda.current_stream().cuda_stream), "decode_attention")
+    return out

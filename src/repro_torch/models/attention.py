@@ -8,8 +8,7 @@ slots and rotate. Masks come from the stamped positions, never from slot
 order. The decode step writes the new token into the cache IN PLACE, where
 the JAX package returns an updated copy (donated under jit).
 
-MLA (deepseek-v2) waits for the rest of the model zoo (ROADMAP A7); the
-fused decode-attention kernel B4 for the next slice.
+MLA (deepseek-v2) waits for the rest of the model zoo (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -157,11 +156,11 @@ def gqa_decode(x, p, acfg: AttnConfig, window: Optional[int], cache: dict,
     positions:(B,Sc)}, updated in place and returned.
 
     A cache created with kv_bits=8 (keys "k_scale"/"v_scale" present)
-    stores keys/values as int8 with per-(token, head) scales."""
-    if attn_impl != "sdpa":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} needs the decode-attention kernel B4, "
-            f"not ported yet (ROADMAP: next slice)")
+    stores keys/values as int8 with per-(token, head) scales.
+
+    `attn_impl="kernel"` runs the flash-decode kernel B4 on the raw (int8
+    or float) cache; a softcapped config stays on `_sdpa`, as in the JAX
+    package."""
     b = x.shape[0]
     h, hkv, d = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
     sc = cache["k"].shape[1]
@@ -179,27 +178,38 @@ def gqa_decode(x, p, acfg: AttnConfig, window: Optional[int], cache: dict,
     k = apply_rope(k, cos, sin, rd)
     slot = pos if window is None else pos % sc
     lane = torch.arange(b, device=x.device)
-    if "k_scale" in cache:
+    int8_kv = "k_scale" in cache
+    if int8_kv:
         kq, ks = _kv_quant(k)
         vq, vs = _kv_quant(v)
         cache["k"][lane, slot] = kq[:, 0]
         cache["v"][lane, slot] = vq[:, 0]
         cache["k_scale"][lane, slot] = ks[:, 0]
         cache["v_scale"][lane, slot] = vs[:, 0]
-        k_use = _kv_dequant(cache["k"], cache["k_scale"]).to(x.dtype)
-        v_use = _kv_dequant(cache["v"], cache["v_scale"]).to(x.dtype)
     else:
         cache["k"][lane, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][lane, slot] = v[:, 0].to(cache["v"].dtype)
-        k_use, v_use = cache["k"], cache["v"]
     cache["positions"][lane, slot] = pos.to(cache["positions"].dtype)
     pos_all = cache["positions"]
-    ok = (pos_all >= 0) & (pos_all <= pos[:, None])
-    if window is not None:
-        ok &= (pos[:, None] - pos_all) < window
-    # (B,1,1,1,Sc): lane dim aligned with the scores' (b,hkv,g,sq,t)
-    mask = _additive(ok)[:, None, None, None, :]
-    ctx = _sdpa(q, k_use, v_use, mask, acfg.softcap, d ** -0.5)
+    if attn_impl != "sdpa" and acfg.softcap is None:
+        # flash-decode reads the RAW cache: no widened copy of it is made
+        from ..kernels.decode_attention import ops as dk
+        ctx = dk.decode_attention(
+            pos, q[:, 0], cache["k"], cache["v"], pos_all,
+            cache.get("k_scale"), cache.get("v_scale"), window=window)
+        ctx = ctx.reshape(b, 1, h * d).to(x.dtype)
+    else:
+        if int8_kv:
+            k_use = _kv_dequant(cache["k"], cache["k_scale"]).to(x.dtype)
+            v_use = _kv_dequant(cache["v"], cache["v_scale"]).to(x.dtype)
+        else:
+            k_use, v_use = cache["k"], cache["v"]
+        ok = (pos_all >= 0) & (pos_all <= pos[:, None])
+        if window is not None:
+            ok &= (pos[:, None] - pos_all) < window
+        # (B,1,1,1,Sc): lane dim aligned with the scores' (b,hkv,g,sq,t)
+        mask = _additive(ok)[:, None, None, None, :]
+        ctx = _sdpa(q, k_use, v_use, mask, acfg.softcap, d ** -0.5)
     out = dense(ctx, p["wo"], act_bits=act_bits, impl=impl)
     return out, cache
 

@@ -22,6 +22,7 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
 
       torch.Tensor       — dense matmul (unquantized serving)
       BitplaneWeights    — bit-plane kernels (float or bit-serial acts)
+      QuantizedTensor    — fused-dequant kernel B5 (the baseline)
 
     `impl` is a `core.backends.Backend` (None → the default backend), an
     impl string of the bit-plane entry points, or a callable
@@ -41,9 +42,11 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
                 out = bp.bitplane_gemv(x, w, impl=impl)
         out = out.to(x.dtype)
     elif isinstance(w, QuantizedTensor):
-        raise NotImplementedError(
-            "QuantizedTensor leaves need the fused-dequant kernel B5 "
-            "(quant_matmul), not ported yet (ROADMAP A8)")
+        from ..kernels.quant_matmul import ops as qm
+        # an EngineLinear routes bit-plane leaves only: here it stands for
+        # its backend (the JAX package reads the same off its `.mode`)
+        impl = backends.resolve_impl(getattr(impl, "backend", impl))
+        out = qm.quant_matmul(x, w, impl=impl).to(x.dtype)
     else:
         out = torch.einsum("...n,nm->...m", x, w.to(x.dtype))
     if b is not None:

@@ -25,6 +25,9 @@ from .layers import embed, ffn, lm_head, norm
 from .params import ParamDef, init_params  # noqa: F401  (re-exported)
 
 
+ATTN_IMPLS = ("sdpa", "kernel")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configuration kinds the port does not have yet."""
     what = [name for name, on in (
@@ -169,8 +172,14 @@ class Model:
         self.cfg = cfg
         self.act_bits = act_bits
         self.impl = impl
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
         self.kv_bits = kv_bits      # 8 → int8 KV cache
-        self.attn_impl = attn_impl  # "sdpa" (the kernel B4 is not ported)
+        # decode attention: "sdpa" (plain, widens the cache) or "kernel"
+        # (the flash-decode kernel B4 on the raw cache; its plain version
+        # on CPU tensors, where the JAX package says "kernel_interpret")
+        self.attn_impl = attn_impl
 
     @property
     def dtype(self) -> torch.dtype:

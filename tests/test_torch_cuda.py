@@ -7,14 +7,21 @@ machine run them with
 
 The shapes cover what `chip_smoke.py`'s llama2-7b shapes do not: output
 widths that are not a multiple of the 32-column strip, more than one
-8-row group of the batch, ragged reduction tails and grouped scales.
+8-row group of the batch, ragged reduction tails and grouped scales; for
+flash-decode, every head size and cache type, GQA, windows, ragged cache
+lengths and lanes with no valid slot.
 """
 import pytest
 import torch
 
 from repro_torch.core.bitplane import make_bitplane_weights
-from repro_torch.core.quant import QuantSpec
+from repro_torch.core.quant import QuantSpec, quantize_weights
 from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
+from repro_torch.kernels.decode_attention import kernel as dkernel
+from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.quant_matmul import kernel as qkernel
+from repro_torch.kernels.quant_matmul import ops as qops
+from repro_torch.kernels.quant_matmul import ref as qref
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +95,110 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="cpu"):
         kernel.gemv_bs(codes, bw.planes.cpu(), scales, q=2, p=4, z_a=8,
                        z_w=2, bn=256)
+
+
+# (B, S, H, Hkv, D, window): ragged S, GQA down to one KV head, windows
+DECODE_SHAPES = [(3, 1000, 8, 2, 128, None), (2, 77, 4, 4, 32, 16),
+                 (1, 4096, 32, 32, 128, 1024), (4, 300, 8, 1, 256, None),
+                 (2, 513, 8, 4, 64, 100)]
+
+
+def _decode_inputs(gen, b, s, h, hkv, d, q_dtype, kv):
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(q_dtype)
+    kf = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    vf = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    if kv == torch.int8:
+        ks = kf.abs().amax(-1) / 127 + 1e-8
+        vs = vf.abs().amax(-1) / 127 + 1e-8
+        return (q, torch.round(kf / ks[..., None]).to(torch.int8),
+                torch.round(vf / vs[..., None]).to(torch.int8), ks, vs)
+    return q, kf.to(kv), vf.to(kv), None, None
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window", DECODE_SHAPES)
+@pytest.mark.parametrize("q_dtype,kv", [
+    (torch.float32, torch.float32), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)])
+def test_decode_attention_within_tolerance(gen, b, s, h, hkv, d, window,
+                                           q_dtype, kv):
+    """Against the plain version: rtol/atol 1e-5 for a float32 output, one
+    bf16 ulp (plus 1e-5·max) for a bf16 one. Lane 0 sees a wrapped ring
+    buffer, the last lane no valid slot (when B > 1)."""
+    q, k, v, ks, vs = _decode_inputs(gen, b, s, h, hkv, d, q_dtype, kv)
+    pos = torch.arange(b, device="cuda", dtype=torch.int32) * 7 + s // 2
+    stamps = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    pos[0] = 3 * s + 5       # slot t holds the newest position ≡ t mod s
+    stamps[0] = pos[0] - (pos[0] - stamps[0]) % s
+    if b > 1:
+        stamps[-1] = -1
+    l0 = dkernel.LAUNCHES["decode_attention"]
+    got = dops.decode_attention(pos, q, k, v, stamps, ks, vs, window=window)
+    want = dops.decode_attention(pos, q, k, v, stamps, ks, vs,
+                                 window=window, impl="reference")
+    torch.cuda.synchronize()
+    assert dkernel.LAUNCHES["decode_attention"] == l0 + 1
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    if q_dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * w.abs()
+    else:
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) \
+            + 1e-5 * float(w.abs().max())
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+def test_decode_attention_rejects_bad_inputs(gen):
+    q, k, v, _, _ = _decode_inputs(gen, 1, 64, 4, 4, 32, torch.float32,
+                                   torch.float32)
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    st = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+    with pytest.raises(ValueError, match="head dim"):
+        dkernel.decode_attention(pos, q[..., :16].contiguous(),
+                                 k[..., :16].contiguous(),
+                                 v[..., :16].contiguous(), st, None, None,
+                                 scale=1.0, window=None)
+    with pytest.raises(ValueError, match="contiguous"):
+        dkernel.decode_attention(pos, q, k.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), v, st, None, None,
+                                 scale=1.0, window=None)
+    with pytest.raises(ValueError, match="kv_positions"):
+        dkernel.decode_attention(pos, q, k, v, st.long(), None, None,
+                                 scale=1.0, window=None)
+
+
+# (n, m, B, q, group_size): ragged n and m, B over one 8-row group
+QMM_SHAPES = [(300, 90, 3, 2, -1), (1000, 130, 11, 4, -1),
+              (512, 40, 1, 8, 128), (4096, 200, 17, 2, -1),
+              (11008, 64, 4, 2, -1), (640, 33, 2, 1, 320),
+              (4096, 4096, 4, 2, 128)]
+
+
+@pytest.mark.parametrize("n,m,b,q,gs", QMM_SHAPES)
+def test_quant_matmul_within_tolerance(gen, n, m, b, q, gs):
+    """Against the plain version at rtol 1e-5, atol 1e-5·max|plain| (both
+    sum in f32, in another order); no plain version runs for the kernel."""
+    w = torch.randn((n, m), generator=gen, device="cuda")
+    wq = quantize_weights(w, QuantSpec(bits=q, group_size=gs))
+    x = torch.randn((b, n), generator=gen, device="cuda")
+    c0, l0 = dict(qref.CALLS), qkernel.LAUNCHES["quant_matmul"]
+    got = qops.quant_matmul(x, wq)
+    assert qref.CALLS == c0
+    assert qkernel.LAUNCHES["quant_matmul"] == l0 + 1
+    want = qops.quant_matmul(x, wq, impl="reference")
+    torch.cuda.synchronize()
+    tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_quant_matmul_rejects_what_the_kernel_does_not_take(gen):
+    w = torch.randn((320, 64), generator=gen, device="cuda")
+    wq = quantize_weights(w, QuantSpec(bits=3))
+    with pytest.raises(ValueError, match="q in"):
+        qops.quant_matmul(torch.randn((2, 320), device="cuda"), wq, bn=160)
+    wq2 = quantize_weights(w, QuantSpec(bits=2))
+    words = qops.packed_codes(wq2)
+    with pytest.raises(ValueError, match="float32"):
+        qkernel.quant_matmul(torch.zeros((2, 320), device="cuda",
+                                         dtype=torch.bfloat16), words,
+                             torch.zeros((1, 64), device="cuda"), q=2,
+                             zero=2, bn=320)

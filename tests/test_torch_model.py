@@ -227,13 +227,3 @@ def test_unported_configs_raise():
     cfg = tiny_config("llama2-7b")
     with pytest.raises(NotImplementedError, match="A7"):
         Model(dataclasses.replace(cfg, input_mode="embeddings"))
-    with pytest.raises(NotImplementedError, match="B4"):
-        m = Model(dataclasses.replace(cfg, dtype="float32"),
-                  attn_impl="kernel")
-        p = convert.params_from_numpy(jax.tree_util.tree_map(
-            np.asarray, j_init_params(j_param_defs(
-                dataclasses.replace(j_tiny_config("llama2-7b"),
-                                    dtype="float32")),
-                jax.random.PRNGKey(1))), "cpu")
-        m.decode_step(p, m.init_cache(1, 8), torch.zeros(1, dtype=torch.long),
-                      0)
