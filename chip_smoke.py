@@ -8,17 +8,23 @@ Phases, each printing one JSON line:
      `src/repro_torch/csrc/` with nvcc for sm_90a;
   2. kernels: B1 gemv_bs, B2 program_gemv and B3 gemv_f against their plain
      PyTorch versions on the card, at the shapes llama2-7b's decode gives
-     them (B = 4 lanes): B1 and B2 bitwise, B2 also bitwise against per-leaf
-     B1, B3 within rtol 1e-5 / atol 1e-5·max|plain|; each timed beside its
-     plain version, a bf16 torch.matmul of the same product (a yardstick the
-     port never calls) and its bound;
+     them (B = 4 lanes; B1 and B3 at all four of 4096→4096, 4096→11008,
+     11008→4096 and 4096→32000, with their split plan; B1 and B3 also at
+     the 64-row prefill of up/gate and lm_head, where the plan has one
+     split and the block folds its own tiles, each also timed through a
+     workspace and the fold launch that several splits take): B1 and B2
+     bitwise, B2 also bitwise against per-leaf B1, B3 within rtol 1e-5 /
+     atol 1e-5·max|plain|; each timed beside its plain version, a bf16
+     torch.matmul of the same product (a yardstick the port never calls)
+     and its bound;
   3. slice, act_bits=4: full-width llama2-7b (random weights from a seed,
      2-bit planes) serves 4 requests of 16 prompt tokens and 16 new tokens
      through `ServeEngine(quantized=True, act_bits=4)`; the launch counts
-     must show B1 and B2 ran and no plain version did, and the prefill
+     must show B1 (and its fold) and B2 ran and no plain version did, and
+     the prefill
      logits must equal, bitwise, those of the same model on the plain
      versions;
-  4. slice, act_bits=None: the same through B3;
+  4. slice, act_bits=None: the same through B3 (and its fold);
   5. kernels: B4 decode_attention against its plain version at llama2-7b's
      full context (B = 4 lanes, 4096 stamped slots, 32 heads of 128) with
      a bf16 and an int8 cache, and on small GQA, windowed ring-buffer and
@@ -36,10 +42,14 @@ Phases, each printing one JSON line:
      logits are compared with the same model on `attn_impl="sdpa"` fed the
      same tokens: reported at act_bits=4 (chaotic there, see PERF.md), held
      to 5 % of max|logit| with float activations;
-  7. slice, the baseline: every linear a q2 `QuantizedTensor` (float
+  7. profile: `repro_torch.launch.profile_decode.profile` serves the
+     act_bits=None (B3) and act_bits=4 slices once more under
+     torch.profiler, one line with both runs' device busy share and top
+     kernels;
+  8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
      activations) through B5, 225 launches a step and no plain version;
      its prefill logits within 5 % of max|logit| of the plain versions';
-  8. the kernels line, then the card's name and power limit, then the
+  9. the kernels line, then the card's name and power limit, then the
      result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
@@ -169,6 +179,10 @@ def plane_bound_ms(planes) -> float:
 LEAF_SHAPES = {"wo": ((4096, 4096), 1), "down": ((11008, 4096), 1),
                "lm_head": ((4096, 32000), 1)}
 B3_ONLY_SHAPES = {"q/k/v": ((4096, 4096), 3), "up/gate": ((4096, 11008), 2)}
+# B1 and B3 at the slices' prefill (B·PROMPT rows), where the plan has one
+# split: B3 runs up/gate so in the slices' prefill; not counted per layer
+PREFILL_SHAPES = {"up/gate prefill": (4096, 11008),
+                  "lm_head prefill": (4096, 32000)}
 GROUP_SHAPES = {"qkv": [(4096, 4096)] * 3, "up_gate": [(4096, 11008)] * 2}
 
 
@@ -196,17 +210,49 @@ def _leaf_inputs(x, bw, act_bits):
     return codes, a, scale_t, bs_kw, f_kw
 
 
+def _fold_through_workspace(kname, arg, planes, scale_t, kw, tpb):
+    """One B1/B3 call at a one-split plan, its tiles folded through a
+    workspace and the second launch (the way several splits are folded)
+    instead of in the block: what the in-block fold is measured against."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_gemv import kernel
+    b, n = arg.shape
+    m = planes.shape[-1]
+    tiles = n // kw["bn"]
+    out = torch.empty((b, m), dtype=torch.float32, device=arg.device)
+    lib = build.library("bitplane_gemv")
+    head = (arg.data_ptr(), planes.data_ptr(), scale_t.data_ptr(),
+            out.data_ptr())
+    dims = (b, n, planes.shape[1], m, kw["q"])
+    if kname == "gemv_bs":
+        ws = torch.empty((tiles, b, m), dtype=torch.int32, device=arg.device)
+        rc = lib.gemv_bs_launch(*head, ws.data_ptr(), *dims, kw["p"],
+                                kw["z_a"], kw["z_w"], kw["bn"], tpb, 1,
+                                kernel._stream())
+    else:
+        ws = torch.empty((1, b, m), dtype=torch.float32, device=arg.device)
+        rc = lib.gemv_f_launch(*head, ws.data_ptr(), *dims, kw["zero"],
+                               kw["bn"], tpb, 1, kernel._stream())
+    build.check(rc, kname)
+    return out
+
+
 def phase_kernels(weight_bits: int, act_bits: int) -> dict:
     import torch
     from repro_torch.core.quant import QuantSpec
     from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = {"gemv_bs": [], "gemv_f": [], "program_gemv": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    # B1 and B3 per leaf
-    for name, ((n, m), count) in {**LEAF_SHAPES, **B3_ONLY_SHAPES}.items():
+    # B1 and B3 per leaf: decode shapes, then prefill ones
+    shapes = [(name, nm, count, B) for name, (nm, count)
+              in {**LEAF_SHAPES, **B3_ONLY_SHAPES}.items()] + [
+        (name, nm, 0, B * PROMPT) for name, nm in PREFILL_SHAPES.items()]
+    for name, (n, m), count, batch in shapes:
         bw = _leaf(n, m, gen, weight_bits)
-        x = torch.randn((B, n), generator=gen, device="cuda")
+        x = torch.randn((batch, n), generator=gen, device="cuda")
         codes, a, scale_t, bs_kw, f_kw = _leaf_inputs(x, bw, act_bits)
         k_copies = [(_leaf(n, m, gen, weight_bits) if i else bw)
                     for i in range(copies_for(nbytes(bw.planes)))]
@@ -217,14 +263,21 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
         lib_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in wlib],
                           20)
         del wlib
-        ops_count = 2.0 * B * n * m
+        ops_count = 2.0 * batch * n * m
+        tiles = codes.shape[1] // bs_kw["bn"]
+        plan = dict(zip(("tiles_per_block", "splits"),
+                        kernel.split_plan(tiles, m, batch, sms)))
+        if (plan["splits"] == 1) != (name in PREFILL_SHAPES):
+            raise AssertionError(f"{name}: plan {plan} (one split expected "
+                                 f"at the prefill shapes only)")
         for kname, kfn, rfn, arg, kw, kind, exact in (
                 ("gemv_bs", kernel.gemv_bs, ref.gemv_bs_ref, codes, bs_kw,
                  "int8", True),
                 ("gemv_f", kernel.gemv_f, ref.gemv_f_ref, a, f_kw,
                  "float32", False)):
-            if kname == "gemv_bs" and name not in LEAF_SHAPES:
-                continue            # q/k/v and up/gate run on B2 at act_bits
+            # q/k/v and up/gate run on B2 at act_bits: B1 is measured there
+            # but not counted in a decode layer
+            calls = count if kname == "gemv_f" or name in LEAF_SHAPES else 0
             got = kfn(arg, bw.planes, scale_t, **kw)
             want = rfn(arg, bw.planes, scale_t, **kw)
             torch.cuda.synchronize()
@@ -239,16 +292,29 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
                                          f"outside rtol/atol {B3_RTOL}")
             ms = graph_ms([lambda c=c: kfn(arg, c.planes, scale_t, **kw)
                            for c in k_copies], 50)
+            extra = {}
+            if plan["splits"] == 1:
+                tpb = plan["tiles_per_block"]
+                via_ws = _fold_through_workspace(kname, arg, bw.planes,
+                                                 scale_t, kw, tpb)
+                torch.cuda.synchronize()
+                if not torch.equal(via_ws, got):
+                    raise AssertionError(f"{kname} {name}: workspace fold "
+                                         f"!= in-block fold")
+                extra["workspace_fold_ms"] = graph_ms(
+                    [lambda c=c: _fold_through_workspace(
+                        kname, arg, c.planes, scale_t, kw, tpb)
+                     for c in k_copies], 50)
             plain = eager_ms(lambda: rfn(arg, bw.planes, scale_t, **kw))
             # the function needs the leaf's scales once, not the per-tile
             # rows that `_expand_scales` hands the kernel
             t_bound, by = bound(nbytes(arg, bw.planes, bw.scale),
                                 nbytes(got), ops_count, kind)
             rows[kname].append(dict(
-                shape=name, n=n, m=m, count=count, max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=t_bound, bound_by=by,
-                plane_bound_ms=plane_bound_ms(bw.planes),
-                library_ms=lib_ms))
+                shape=name, n=n, m=m, rows=batch, count=calls,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
+                bound_by=by, plane_bound_ms=plane_bound_ms(bw.planes),
+                library_ms=lib_ms, **plan, **extra))
         del k_copies
 
     # B2: q/k/v and up/gate, one launch per group
@@ -738,7 +804,28 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the baseline, every linear a QuantizedTensor through B5
+# phase 7: where a forward pass's device time goes, from a profiler trace
+# ---------------------------------------------------------------------------
+
+def phase_profile(cfg, qparams) -> dict:
+    """`profile_decode` at full width on the slices' weights, with float
+    activations (B3 in every linear) and with act_bits=4 (B1 and B2)."""
+    import torch
+    from repro_torch.launch.profile_decode import profile
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    runs = [profile(cfg, qparams, act_bits=ab, batch=B, prompt_len=PROMPT,
+                    tokens=NEW, gen=gen) for ab in (None, 4)]
+    for r in runs:
+        if not r["top_kernels"] or r["device_kernel_s"] <= 0:
+            raise AssertionError(f"profile at act_bits={r['act_bits']} saw "
+                                 f"no device time")
+    out = {"phase": "profile_decode", "runs": runs}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the baseline, every linear a QuantizedTensor through B5
 # ---------------------------------------------------------------------------
 
 def quantized_tensor_params(params, bits: int):
@@ -869,23 +956,27 @@ def main() -> int:
           "dtype": cfg.dtype, "depth_cut": None,
           "setup_seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    s4 = phase_slice(cfg, qparams, prompts, 4, ("gemv_bs", "program_gemv"))
-    sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f",))
+    s4 = phase_slice(cfg, qparams, prompts, 4,
+                     ("gemv_bs", "gemv_bs_fold", "program_gemv"))
+    sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
     rows["decode_attention"] = phase_decode_attention()
     rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
     sa = phase_attn_kernel_slice(cfg, qparams, prompts)
+    phase_profile(cfg, qparams)
     del qparams                       # the baseline needs the float weights
     torch.cuda.empty_cache()
     sb = phase_baseline_slice(cfg, prompts)
 
     launches = {**s4["launches"]}
     launches["gemv_f"] = sf["launches"]["gemv_f"]
+    launches["gemv_f_fold"] = sf["launches"]["gemv_f_fold"]
     launches["decode_attention"] = sa["launches"]["decode_attention"]
     launches["quant_matmul"] = sb["launches"]["quant_matmul"]
     # per kernel, its shapes summed as one decode layer (plus lm_head) calls
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the
-    # names PERF.md's kernel table uses, and `plane_bound_ms` (bit-plane
-    # kernels only) is the planes alone at the memory rate
+    # names PERF.md's kernel table uses, `plane_bound_ms` (bit-plane
+    # kernels only) is the planes alone at the memory rate, and
+    # `fold_launches` (B1, B3) the second launches of split calls
     kernels = []
     for kname, rs in rows.items():
         keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
@@ -900,6 +991,8 @@ def main() -> int:
                 if r["bound_by"] == by)),
             "shapes": {r["shape"]: r["count"] for r in rs}}
         row["kernel_ms"], row["max_abs_diff"] = row["ms"], row["max_abs_err"]
+        if kname + "_fold" in launches:
+            row["fold_launches"] = launches[kname + "_fold"]
         kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,6 +1,6 @@
-// Shared device code of the integer bit-plane GeMV kernels (B1 gemv_bs,
-// B2 program_gemv): one warp computes the exact integer zero-point
-// correction of one reduction tile for 32 output columns, one per lane.
+// Device code of the integer bit-plane GeMV kernel B2 program_gemv: one
+// warp computes the exact integer zero-point correction of one reduction
+// tile for 32 output columns, one per lane.
 //
 // Layouts are the JAX package's: weight planes are 32-row words, bit j of
 // word w is reduction row 32w + j, and neighbouring output columns sit at

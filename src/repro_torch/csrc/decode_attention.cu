@@ -26,7 +26,10 @@
 // its weight exp(NEG_INF − max) is exactly 0, as in the reference. A lane
 // with no valid slot reads every slot: each weighs exp(NEG_INF − NEG_INF)
 // = 1, and the result is the mean of v, as in the reference, which uses
-// the same finite NEG_INF (not −∞, which would give NaN).
+// the same finite NEG_INF (not −∞, which would give NaN). The JAX wrapper
+// pads the cache to a multiple of its block, and its padding slots weigh 1
+// there too with v = 0, so such a lane divides by the padded slot count
+// `s_pad` (≥ S), which the wrapper passes.
 //
 // The launch function returns cudaGetLastError() after the launch; the
 // Python wrapper raises on anything but 0.
@@ -92,8 +95,8 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
               const KT* __restrict__ k, const KT* __restrict__ v,
               const int32_t* __restrict__ stamps,
               const float* __restrict__ ks, const float* __restrict__ vs,
-              QT* __restrict__ out, int S, int H, int Hkv, float scale,
-              int window) {
+              QT* __restrict__ out, int S, int s_pad, int H, int Hkv,
+              float scale, int window) {
   constexpr int E = Elems<KT>::value;          // elements per 16-byte load
   constexpr int L = D / E < 32 ? D / E : 32;   // lanes per slot
   constexpr int NV = D / (E * L);              // loads per lane per slot
@@ -235,7 +238,8 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
     float mg = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mg = fmaxf(mg, s_m[w]);
-    float lg = 0.f, ag = 0.f;
+    // an empty lane also counts the JAX wrapper's padding slots
+    float lg = any ? 0.f : static_cast<float>(s_pad - S), ag = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(s_m[w] - mg);
@@ -250,35 +254,35 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
 template <typename QT, typename KT, int D>
 int launch(const void* pos, const void* q, const void* k, const void* v,
            const void* stamps, const void* ks, const void* vs, void* out,
-           int B, int S, int H, int Hkv, float scale, int window,
+           int B, int S, int s_pad, int H, int Hkv, float scale, int window,
            cudaStream_t stream) {
   decode_kernel<QT, KT, D><<<dim3(H, B), kWarps * 32, 0, stream>>>(
       static_cast<const int32_t*>(pos), static_cast<const QT*>(q),
       static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const int32_t*>(stamps), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<QT*>(out), S, H, Hkv,
-      scale, window);
+      static_cast<const float*>(vs), static_cast<QT*>(out), S, s_pad, H,
+      Hkv, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT>
 int by_dim(int D, const void* pos, const void* q, const void* k,
            const void* v, const void* stamps, const void* ks, const void* vs,
-           void* out, int B, int S, int H, int Hkv, float scale, int window,
-           cudaStream_t stream) {
+           void* out, int B, int S, int s_pad, int H, int Hkv, float scale,
+           int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<QT, KT, 32>(pos, q, k, v, stamps, ks, vs, out, B, S, H,
-                                Hkv, scale, window, stream);
+      return launch<QT, KT, 32>(pos, q, k, v, stamps, ks, vs, out, B, S,
+                                s_pad, H, Hkv, scale, window, stream);
     case 64:
-      return launch<QT, KT, 64>(pos, q, k, v, stamps, ks, vs, out, B, S, H,
-                                Hkv, scale, window, stream);
+      return launch<QT, KT, 64>(pos, q, k, v, stamps, ks, vs, out, B, S,
+                                s_pad, H, Hkv, scale, window, stream);
     case 128:
-      return launch<QT, KT, 128>(pos, q, k, v, stamps, ks, vs, out, B, S, H,
-                                 Hkv, scale, window, stream);
+      return launch<QT, KT, 128>(pos, q, k, v, stamps, ks, vs, out, B, S,
+                                 s_pad, H, Hkv, scale, window, stream);
     case 256:
-      return launch<QT, KT, 256>(pos, q, k, v, stamps, ks, vs, out, B, S, H,
-                                 Hkv, scale, window, stream);
+      return launch<QT, KT, 256>(pos, q, k, v, stamps, ks, vs, out, B, S,
+                                 s_pad, H, Hkv, scale, window, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -286,18 +290,19 @@ int by_dim(int D, const void* pos, const void* q, const void* k,
 template <typename QT>
 int by_kv(int kv_type, int D, const void* pos, const void* q, const void* k,
           const void* v, const void* stamps, const void* ks, const void* vs,
-          void* out, int B, int S, int H, int Hkv, float scale, int window,
-          cudaStream_t stream) {
+          void* out, int B, int S, int s_pad, int H, int Hkv, float scale,
+          int window, cudaStream_t stream) {
   switch (kv_type) {
     case 0:
       return by_dim<QT, float>(D, pos, q, k, v, stamps, ks, vs, out, B, S,
-                               H, Hkv, scale, window, stream);
+                               s_pad, H, Hkv, scale, window, stream);
     case 1:
       return by_dim<QT, __nv_bfloat16>(D, pos, q, k, v, stamps, ks, vs, out,
-                                       B, S, H, Hkv, scale, window, stream);
+                                       B, S, s_pad, H, Hkv, scale, window,
+                                       stream);
     case 2:
       return by_dim<QT, int8_t>(D, pos, q, k, v, stamps, ks, vs, out, B, S,
-                                H, Hkv, scale, window, stream);
+                                s_pad, H, Hkv, scale, window, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -305,20 +310,23 @@ int by_kv(int kv_type, int D, const void* pos, const void* q, const void* k,
 }  // namespace
 
 // q_type: 0 f32, 1 bf16 (out has q's type); kv_type: 0 f32, 1 bf16, 2 int8
-// (then ks/vs are the scales); window < 0: no window.
+// (then ks/vs are the scales); window < 0: no window; s_pad ≥ S: the slot
+// count a lane with no valid slot divides by.
 extern "C" int decode_attention_launch(const void* pos, const void* q,
                                        const void* k, const void* v,
                                        const void* stamps, const void* ks,
                                        const void* vs, void* out, int B,
-                                       int S, int H, int Hkv, int D,
-                                       int q_type, int kv_type, float scale,
-                                       int window, void* stream) {
+                                       int S, int s_pad, int H, int Hkv,
+                                       int D, int q_type, int kv_type,
+                                       float scale, int window,
+                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s_pad < S) return static_cast<int>(cudaErrorInvalidValue);
   if (q_type == 0)
     return by_kv<float>(kv_type, D, pos, q, k, v, stamps, ks, vs, out, B, S,
-                        H, Hkv, scale, window, st);
+                        s_pad, H, Hkv, scale, window, st);
   if (q_type == 1)
     return by_kv<__nv_bfloat16>(kv_type, D, pos, q, k, v, stamps, ks, vs,
-                                out, B, S, H, Hkv, scale, window, st);
+                                out, B, S, s_pad, H, Hkv, scale, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

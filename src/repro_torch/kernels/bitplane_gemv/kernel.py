@@ -8,20 +8,66 @@ to the plain version in `ref.py`. There is no other fallback.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import build
 from . import ref
 
-#: launches of each CUDA kernel (the plain versions count in ref.CALLS)
-LAUNCHES = {"gemv_bs": 0, "gemv_f": 0}
+#: launches of each CUDA kernel (the plain versions count in ref.CALLS):
+#: `gemv_bs`/`gemv_f` one per call, `*_fold` the second launch of a call
+#: whose reduction is split over blocks
+LAUNCHES = {"gemv_bs": 0, "gemv_f": 0, "gemv_bs_fold": 0, "gemv_f_fold": 0}
 
-MAX_BN = 512   # the kernels stage at most 16 words per reduction tile
+MAX_BN = 512   # bn the kernels take (16 words per reduction tile)
 MAX_BITS = 8
+
+# The kernels' blocking (csrc/bitplane_gemv.cu): a block owns a strip of
+# STRIP output columns, ROWS batch rows and at most MAX_TILES_PER_BLOCK
+# consecutive reduction tiles.
+STRIP = 128
+ROWS = 4
+MAX_TILES_PER_BLOCK = 8
+#: blocks a launch aims for on each SM (chosen, not tuned on the card)
+BLOCKS_PER_SM = 4
+
+
+def split_plan(tiles: int, m: int, b: int, sms: int) -> tuple:
+    """(tiles_per_block, splits): how a launch splits the reduction tiles
+    of every column strip over blocks. Enough splits that the grid reaches
+    BLOCKS_PER_SM blocks on each of the card's `sms` SMs, unless there are
+    fewer tiles than that; at most MAX_TILES_PER_BLOCK tiles a block;
+    splits = ceil(tiles / tiles_per_block). With one split a block owns
+    every tile and writes the output itself; with more, a second launch
+    folds a workspace."""
+    if min(tiles, m, b, sms) < 1:
+        raise ValueError(f"split_plan: tiles={tiles}, m={m}, b={b}, "
+                         f"sms={sms} must be >= 1")
+    per_split = -(-m // STRIP) * -(-b // ROWS)
+    want = min(tiles, -(-BLOCKS_PER_SM * sms // per_split))
+    tpb = min(tiles // want, MAX_TILES_PER_BLOCK)
+    return tpb, -(-tiles // tpb)
+
+
+def workspace_shape(kind: str, tiles: int, splits: int, b: int,
+                    m: int) -> tuple:
+    """Shape of the workspace a launch folds (empty with one split):
+    gemv_bs keeps each tile's exact int32 correction, (tiles, B, M), so
+    that the fold runs the f32 epilogue in tile order; gemv_f each split's
+    f32 partial, (splits, B, M)."""
+    if splits == 1:
+        return (0,)
+    return (tiles, b, m) if kind == "gemv_bs" else (splits, b, m)
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_inputs(what: str, a, planes, scale_tiles, a_dtype, *, q: int,
@@ -78,13 +124,18 @@ def gemv_bs(a_codes, planes, scale_tiles, *, q: int, p: int, z_a: int,
                  bn=bn, bits=(("p", p),))
     b, n, words, m = _check_gemv("gemv_bs", a_codes, planes, scale_tiles,
                                  q, bn)
+    tiles = n // bn
+    tpb, splits = split_plan(tiles, m, b, _sms(a_codes.device))
     out = torch.empty((b, m), dtype=torch.float32, device=a_codes.device)
+    ws = torch.empty(workspace_shape("gemv_bs", tiles, splits, b, m),
+                     dtype=torch.int32, device=a_codes.device)
     lib = build.library("bitplane_gemv")
     LAUNCHES["gemv_bs"] += 1
+    LAUNCHES["gemv_bs_fold"] += int(splits > 1)
     build.check(lib.gemv_bs_launch(
         a_codes.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
-        out.data_ptr(), b, n, words, m, q, p, z_a, z_w, bn, _stream()),
-        "gemv_bs")
+        out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, n, words,
+        m, q, p, z_a, z_w, bn, tpb, splits, _stream()), "gemv_bs")
     return out
 
 
@@ -97,10 +148,16 @@ def gemv_f(a, planes, scale_tiles, *, q: int, zero: int,
     _check_inputs("gemv_f", a, planes, scale_tiles, torch.float32, q=q,
                  bn=bn)
     b, n, words, m = _check_gemv("gemv_f", a, planes, scale_tiles, q, bn)
+    tiles = n // bn
+    tpb, splits = split_plan(tiles, m, b, _sms(a.device))
     out = torch.empty((b, m), dtype=torch.float32, device=a.device)
+    ws = torch.empty(workspace_shape("gemv_f", tiles, splits, b, m),
+                     dtype=torch.float32, device=a.device)
     lib = build.library("bitplane_gemv")
     LAUNCHES["gemv_f"] += 1
+    LAUNCHES["gemv_f_fold"] += int(splits > 1)
     build.check(lib.gemv_f_launch(
         a.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
-        out.data_ptr(), b, n, words, m, q, zero, bn, _stream()), "gemv_f")
+        out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, n, words,
+        m, q, zero, bn, tpb, splits, _stream()), "gemv_f")
     return out

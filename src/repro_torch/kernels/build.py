@@ -30,11 +30,12 @@ _F = ctypes.c_float
 #: launch's cudaError_t as an int
 SIGNATURES = {
     "bitplane_gemv": {
-        # codes, planes, scales, out, B, n_pad, n_words, M, q, p, z_a, z_w,
-        # bn, stream
-        "gemv_bs_launch": [_P] * 4 + [_I] * 9 + [_P],
-        # a, planes, scales, out, B, n_pad, n_words, M, q, zero, bn, stream
-        "gemv_f_launch": [_P] * 4 + [_I] * 7 + [_P],
+        # codes, planes, scales, out, ws, B, n_pad, n_words, M, q, p, z_a,
+        # z_w, bn, tiles_per_block, splits, stream
+        "gemv_bs_launch": [_P] * 5 + [_I] * 11 + [_P],
+        # a, planes, scales, out, ws, B, n_pad, n_words, M, q, zero, bn,
+        # tiles_per_block, splits, stream
+        "gemv_f_launch": [_P] * 5 + [_I] * 9 + [_P],
     },
     "program_gemv": {
         # params, codes, planes, scales, out, S, NT, B, BN, BM, q_max,
@@ -42,9 +43,9 @@ SIGNATURES = {
         "program_gemv_launch": [_P] * 5 + [_I] * 7 + [_P],
     },
     "decode_attention": {
-        # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, H, Hkv, D,
-        # q_type, kv_type, scale, window, stream
-        "decode_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, s_pad, H, Hkv,
+        # D, q_type, kv_type, scale, window, stream
+        "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     },
     "quant_matmul": {
         # a, words, scales, out, B, n_pad, W, M, q, zero, bn, stream

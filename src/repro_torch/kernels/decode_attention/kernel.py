@@ -68,7 +68,9 @@ def decode_attention(pos, q, k, v, kv_positions, k_scale, v_scale, *,
     (B, S, Hkv, D) f32, bf16 or int8 with k_scale/v_scale (B, S, Hkv) f32
     (None for a float cache); kv_positions (B, S) int32 stamps → (B, H, D)
     in q's dtype. A slot counts iff 0 ≤ stamp ≤ pos (and pos − stamp <
-    window when `window` is not None)."""
+    window when `window` is not None). A lane with no valid slot gets
+    Σ v / `ref.padded_slots(S)`, as the JAX wrapper's padded cache gives
+    it."""
     if not q.is_cuda:
         return ref.decode_attention_ref(pos, q, k, v, kv_positions, k_scale,
                                         v_scale, scale=scale, window=window)
@@ -83,7 +85,7 @@ def decode_attention(pos, q, k, v, kv_positions, k_scale, v_scale, *,
         kv_positions.data_ptr(),
         0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, Q_TYPES[q.dtype], KV_TYPES[k.dtype], float(scale),
-        -1 if window is None else int(window),
+        b, s, ref.padded_slots(s), h, hkv, d, Q_TYPES[q.dtype],
+        KV_TYPES[k.dtype], float(scale), -1 if window is None else int(window),
         torch.cuda.current_stream().cuda_stream), "decode_attention")
     return out

@@ -7,7 +7,9 @@ CUDA tensors, its plain version for CPU tensors), `impl="reference"` always
 to the plain version. Where the JAX wrapper expands GQA heads with
 `jnp.repeat` and pads the cache to its block, the kernel reads KV head
 h // (H / Hkv) in place and masks the ragged end of the cache itself, so
-nothing is copied here.
+nothing is copied here. What the padding changes is kept: a lane with no
+valid slot divides by the padded slot count (`ref.padded_slots`), as the
+JAX wrapper's does.
 """
 from __future__ import annotations
 
@@ -32,10 +34,9 @@ def decode_attention(pos, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-lane stamps (a (S,) vector is broadcast). Returns (B, H, D) in
     q.dtype.
 
-    A lane with no valid slot gets the mean of v over its S slots (every
-    score is the finite NEG_INF), as the JAX reference does; the JAX
-    wrapper also averages the slots it pads the cache with, so the two
-    differ there when S is not a multiple of its block.
+    A lane with no valid slot (every score the finite NEG_INF) gets Σ v
+    over its S slots divided by `ref.padded_slots(S)`, as the JAX wrapper's
+    padded cache gives it.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")

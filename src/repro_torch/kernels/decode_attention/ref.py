@@ -11,10 +11,19 @@ import torch
 
 NEG_INF = -2.3819763e38   # the JAX package's constant: finite, so a lane
                           # with no valid slot averages v instead of NaN
+BLOCK = 1024              # the JAX wrapper's KV block (it pads S to it)
 
 #: calls of the plain version — a run on the card shows that the main path
 #: never reached it (only `chip_smoke.py`'s comparisons do)
 CALLS = {"decode_attention": 0}
+
+
+def padded_slots(s: int) -> int:
+    """The slot count the JAX wrapper pads a cache of `s` slots to,
+    ceil(s / min(BLOCK, s))·min(BLOCK, s): what a lane with no valid slot
+    divides Σ v by."""
+    blk = min(BLOCK, s)
+    return -(-s // blk) * blk
 
 
 def slot_mask(pos: torch.Tensor, kv_positions: torch.Tensor, window
@@ -32,7 +41,10 @@ def decode_attention_ref(pos, q, k, v, kv_positions, k_scale, v_scale, *,
     """Same contract as `kernel.decode_attention`: pos (B,) int32; q (B, H,
     D); k/v (B, S, Hkv, D) float, or int8 with k_scale/v_scale (B, S, Hkv)
     f32 (None for a float cache); kv_positions (B, S) int32 → (B, H, D) in
-    q's dtype. Query head h reads KV head h // (H / Hkv)."""
+    q's dtype. Query head h reads KV head h // (H / Hkv). The softmax also
+    counts `padded_slots(S)` − S slots of zero v whose score is NEG_INF
+    (the JAX wrapper's padding): they weigh 1 in a lane with no valid slot
+    and nothing elsewhere."""
     CALLS["decode_attention"] += 1
     h, hkv = q.shape[1], k.shape[2]
     kf = k.to(torch.float32)
@@ -47,6 +59,11 @@ def decode_attention_ref(pos, q, k, v, kv_positions, k_scale, v_scale, *,
     ok = slot_mask(pos, kv_positions, window)
     s = torch.where(ok[:, None, :], s,
                     torch.full((), NEG_INF, device=s.device))
-    w = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = w / w.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    w = torch.exp(s - m)
+    den = w.sum(dim=-1, keepdim=True)
+    pad = padded_slots(k.shape[1]) - k.shape[1]
+    if pad:
+        den = den + pad * torch.exp(NEG_INF - m)
+    w = w / den
     return torch.einsum("bht,bthd->bhd", w, vf).to(q.dtype)

@@ -4,12 +4,13 @@
         --arch llama2-7b --act-bits 4 --batch 4 --prompt-len 16 --tokens 16
 
 Builds the model at full width with random weights from `--seed`, serves
-one warm-up request batch, then runs `ServeEngine.generate` once timed and once more under `torch.profiler`, and
-prints one JSON line: the wall time of the timed call, the device time
-summed over all kernels of the profiled call, the device busy share
-(kernel time / unprofiled wall time: kernels run on one stream and do not
-overlap, and the profiler slows the host, not the kernels) and the kernels
-that took the most device time. Needs a CUDA device.
+one warm-up request batch, then runs `ServeEngine.generate` once timed and
+once more under `torch.profiler` (`profile`, which `chip_smoke.py` also
+calls), and prints one JSON line: the wall time of the timed call, the
+device time summed over all kernels of the profiled call, the device busy
+share (kernel time / unprofiled wall time: kernels run on one stream and
+do not overlap, and the profiler slows the host, not the kernels) and the
+kernels that took the most device time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -40,6 +41,45 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
+def profile(cfg, qparams, *, act_bits, batch: int, prompt_len: int,
+            tokens: int, gen: torch.Generator) -> dict:
+    """Serve one warm-up batch of random prompts through `ServeEngine` on
+    `qparams`, then time one more and profile a third: the result line's
+    fields (module docstring)."""
+    eng = ServeEngine(cfg, qparams, max_seq=prompt_len + tokens,
+                      batch_slots=batch, quantized=True, act_bits=act_bits,
+                      device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device="cuda")
+    eng.generate(prompts, max_new=tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new=tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new=tokens)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    kernels = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()
+               if _kernel_us(e) > 0]
+    device_s = sum(us for _, us, _ in kernels) / 1e6
+    kernels.sort(key=lambda k: -k[1])
+    return {
+        "phase": "profile_decode", "config": cfg.name,
+        "layers": cfg.num_layers, "act_bits": act_bits, "batch": batch,
+        "prompt_len": prompt_len, "new_tokens": tokens, "wall_s": wall,
+        "profiled_wall_s": profiled_wall,
+        "tokens_per_s": batch * tokens / wall,
+        "device_kernel_s": device_s, "device_busy_share": device_s / wall,
+        "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
+                         "calls": n} for k, us, n in kernels[:TOP]],
+        "device": torch.cuda.get_device_name(0)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b", choices=list(ARCHS))
@@ -56,40 +96,9 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     qparams = quantize_params(init_params(param_defs(cfg), gen, "cuda"),
                               cfg.weight_bits)
-    eng = ServeEngine(cfg, qparams, max_seq=args.prompt_len + args.tokens,
-                      batch_slots=args.batch, quantized=True,
-                      act_bits=args.act_bits, device="cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch,
-                                                args.prompt_len),
-                            generator=gen, device="cuda")
-    eng.generate(prompts, max_new=args.tokens)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(prompts, max_new=args.tokens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.generate(prompts, max_new=args.tokens)
-        torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    kernels = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()
-               if _kernel_us(e) > 0]
-    device_s = sum(us for _, us, _ in kernels) / 1e6
-    kernels.sort(key=lambda k: -k[1])
-    print(json.dumps({
-        "phase": "profile_decode", "config": cfg.name,
-        "layers": cfg.num_layers, "act_bits": args.act_bits,
-        "batch": args.batch, "prompt_len": args.prompt_len,
-        "new_tokens": args.tokens, "wall_s": wall,
-        "profiled_wall_s": profiled_wall,
-        "tokens_per_s": args.batch * args.tokens / wall,
-        "device_kernel_s": device_s, "device_busy_share": device_s / wall,
-        "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
-                         "calls": n} for k, us, n in kernels[:TOP]],
-        "device": torch.cuda.get_device_name(0)}), flush=True)
+    print(json.dumps(profile(cfg, qparams, act_bits=args.act_bits,
+                             batch=args.batch, prompt_len=args.prompt_len,
+                             tokens=args.tokens, gen=gen)), flush=True)
 
 
 if __name__ == "__main__":

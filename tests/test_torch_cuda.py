@@ -6,10 +6,15 @@ machine run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The shapes cover what `chip_smoke.py`'s llama2-7b shapes do not: output
-widths that are not a multiple of the 32-column strip, more than one
-8-row group of the batch, ragged reduction tails and grouped scales; for
-flash-decode, every head size and cache type, GQA, windows, ragged cache
-lengths and lanes with no valid slot.
+widths that are not a multiple of the 128-column strip (or of 4, which
+takes scalar loads), batches of 1 to 64 rows (4 a block), ragged reduction
+tails, grouped scales with bn at or below the group size, q = p = 8, and
+every path of the split plan (`kernel.split_plan`): one block owning many
+tiles, a workspace folded after splits of one tile, and splits of several
+tiles, with a ragged last one too (`tests/test_torch_bitplane_plan.py`
+checks that these shapes reach each). For flash-decode, every head size and
+cache type, GQA, windows, ragged cache lengths, lanes with no valid slot
+and the JAX wrapper's padded slot count.
 """
 import pytest
 import torch
@@ -19,6 +24,7 @@ from repro_torch.core.quant import QuantSpec, quantize_weights
 from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
 from repro_torch.kernels.decode_attention import kernel as dkernel
 from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.decode_attention import ref as dref
 from repro_torch.kernels.quant_matmul import kernel as qkernel
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import ref as qref
@@ -28,7 +34,19 @@ pytestmark = pytest.mark.cuda
 # (n, m, q, p, groups, B)
 SHAPES = [(300, 90, 2, 4, 1, 3), (1000, 130, 3, 2, 1, 11),
           (512, 40, 5, 4, 2, 1), (4096, 200, 2, 4, 1, 17),
-          (11008, 64, 2, 8, 1, 4)]
+          (11008, 64, 2, 8, 1, 4),
+          # llama2-7b's down (22 tiles, 8 live words in the last) and
+          # lm_head at decode, lm_head at a 64-row prefill
+          (11008, 4096, 2, 4, 1, 4), (4096, 32000, 2, 4, 1, 4),
+          (4096, 32000, 2, 4, 1, 64),
+          # splits of 7 tiles and a ragged last one; B = 1, 9 and 64
+          (11008, 1408, 2, 4, 1, 64), (300, 40, 2, 4, 1, 1),
+          (1000, 130, 3, 2, 1, 9), (1000, 40, 2, 3, 1, 64),
+          # q = p = 8; grouped scales with bn = group size and below it
+          (1024, 256, 8, 8, 1, 4), (2048, 130, 4, 4, 4, 9),
+          (2048, 130, 2, 4, 16, 4), (640, 33, 1, 3, 5, 2),
+          # one reduction tile
+          (256, 100, 3, 4, 1, 5)]
 
 
 @pytest.fixture
@@ -44,16 +62,26 @@ def _leaf(gen, n, m, q, g):
         w, QuantSpec(bits=q, group_size=n // g if g > 1 else -1))
 
 
+def _folds(n, m, g, b) -> int:
+    """Fold launches of one call: 1 when the plan splits the tiles."""
+    bn, _ = ops._pick_blocks(n, m, None, None, n // g if g > 1 else None)
+    _, splits = kernel.split_plan(-(-n // bn), m, b,
+                                  kernel._sms(torch.device("cuda")))
+    return int(splits > 1)
+
+
 @pytest.mark.parametrize("n,m,q,p,g,b", SHAPES)
 def test_gemv_bs_bitwise_equals_plain(gen, n, m, q, p, g, b):
     bw = _leaf(gen, n, m, q, g)
     x = torch.randn((b, n), generator=gen, device="cuda")
-    k0 = kernel.LAUNCHES["gemv_bs"]
+    k0 = dict(kernel.LAUNCHES)
     got = ops.bitplane_gemv_bitserial(x, bw, QuantSpec(bits=p))
     want = ops.bitplane_gemv_bitserial(x, bw, QuantSpec(bits=p),
                                        impl="reference")
     torch.cuda.synchronize()
-    assert kernel.LAUNCHES["gemv_bs"] == k0 + 1
+    assert kernel.LAUNCHES["gemv_bs"] == k0["gemv_bs"] + 1
+    assert kernel.LAUNCHES["gemv_bs_fold"] == \
+        k0["gemv_bs_fold"] + _folds(n, m, g, b)
     assert torch.equal(got, want)
 
 
@@ -61,9 +89,13 @@ def test_gemv_bs_bitwise_equals_plain(gen, n, m, q, p, g, b):
 def test_gemv_f_within_tolerance(gen, n, m, q, p, g, b):
     bw = _leaf(gen, n, m, q, g)
     x = torch.randn((b, n), generator=gen, device="cuda")
+    k0 = dict(kernel.LAUNCHES)
     got = ops.bitplane_gemv(x, bw)
     want = ops.bitplane_gemv(x, bw, impl="reference")
     torch.cuda.synchronize()
+    assert kernel.LAUNCHES["gemv_f"] == k0["gemv_f"] + 1
+    assert kernel.LAUNCHES["gemv_f_fold"] == \
+        k0["gemv_f_fold"] + _folds(n, m, g, b)
     tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
     assert bool(((got - want).abs() <= tol).all())
 
@@ -145,6 +177,27 @@ def test_decode_attention_within_tolerance(gen, b, s, h, hkv, d, window,
         tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) \
             + 1e-5 * float(w.abs().max())
     assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("kv", [torch.float32, torch.int8])
+def test_decode_attention_empty_lane_divides_by_padded_slots(gen, kv):
+    """S = 1500 (padded to 2048 by the JAX wrapper's block of 1024): lane 1
+    has no valid slot and gets Σ v / 2048, in the kernel as in the plain
+    version (rtol/atol 1e-5)."""
+    b, s, h, hkv, d = 2, 1500, 8, 4, 128
+    q, k, v, ks, vs = _decode_inputs(gen, b, s, h, hkv, d, torch.float32, kv)
+    pos = torch.tensor([1200, 700], device="cuda", dtype=torch.int32)
+    stamps = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    stamps[1] = -1
+    got = dops.decode_attention(pos, q, k, v, stamps, ks, vs)
+    want = dops.decode_attention(pos, q, k, v, stamps, ks, vs,
+                                 impl="reference")
+    torch.cuda.synchronize()
+    assert dref.padded_slots(s) == 2048
+    assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    vf = v.float() * (1.0 if vs is None else vs[..., None])
+    mean = vf[1].sum(0).repeat_interleave(h // hkv, 0) / 2048
+    assert torch.allclose(got[1], mean, rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_rejects_bad_inputs(gen):

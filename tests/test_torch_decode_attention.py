@@ -110,6 +110,33 @@ def test_lane_with_no_valid_slot_averages_v(rng, kv):
                                **TOL)
 
 
+@pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_empty_lane_divides_by_the_padded_slot_count(rng, kv, impl):
+    """S = 1500 is not a multiple of the JAX wrapper's block (1024): it pads
+    the cache to 2048 slots of zero v and stamp -1, and a lane with no
+    valid slot weighs all 2048 alike. The port gives that lane Σ v / 2048
+    too, with no padding copy; the lane with valid slots is unchanged."""
+    b, s, h, hkv, d = 2, 1500, 4, 2, 32
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    pos = np.array([1200, 700], np.int32)
+    stamps = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    stamps[1] = -1
+    k, v, ks, vs = _cache(rng, b, s, hkv, d, kv)
+    jargs = [jnp.asarray(x) for x in (pos, q, k, v, stamps)]
+    want = np.asarray(jops.decode_attention(
+        *jargs, None if ks is None else jnp.asarray(ks),
+        None if vs is None else jnp.asarray(vs), impl=impl))
+    t = lambda x: None if x is None else torch.from_numpy(np.array(x))
+    got = tops.decode_attention(t(pos), t(q), t(k), t(v), t(stamps), t(ks),
+                                t(vs)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    vf = v.astype(np.float32) * (1.0 if vs is None else vs[..., None])
+    np.testing.assert_allclose(
+        got[1], np.repeat(vf[1].sum(0) / 2048, h // hkv, axis=0), **TOL)
+    assert tref.padded_slots(s) == 2048
+
+
 @pytest.mark.parametrize("window", [None, 64])
 def test_ring_buffer_per_lane_positions(rng, window):
     """Per-lane positions, and stamps of a ring buffer that has wrapped:
