@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
   1. device and build: the card, then every CUDA kernel built from
      `src/repro_torch/csrc/` with nvcc for sm_90a;
-  2. kernels: B1 gemv_bs, B2 program_gemv and B3 gemv_f against their plain
+  2. kernels: B1 gemv_bs, B2 program_gemv (through the member table that
+     reads each leaf in place) and B3 gemv_f against their plain
      PyTorch versions on the card, at the shapes llama2-7b's decode gives
      them (B = 4 lanes; B1 and B3 at all four of 4096→4096, 4096→11008,
      11008→4096 and 4096→32000, with their split plan; B1 and B3 also at
@@ -20,24 +21,26 @@ Phases, each printing one JSON line:
   3. slice, act_bits=4: full-width llama2-7b (random weights from a seed,
      2-bit planes) serves 4 requests of 16 prompt tokens and 16 new tokens
      through `ServeEngine(quantized=True, act_bits=4)`; the launch counts
-     must show B1 (and its fold) and B2 ran and no plain version did, and
-     the prefill
-     logits must equal, bitwise, those of the same model on the plain
-     versions;
+     must show B1 and B2 (and their folds) ran and no plain version did,
+     the engine must hold no copy of the groups' weights (B2's member
+     tables above 0.01 GB), and the prefill logits must equal, bitwise,
+     those of the same model on the plain versions;
   4. slice, act_bits=None: the same through B3 (and its fold);
   5. kernels: B4 decode_attention against its plain version at llama2-7b's
      full context (B = 4 lanes, 4096 stamped slots, 32 heads of 128) with
      a bf16 and an int8 cache, and on small GQA, windowed ring-buffer and
      no-valid-slot shapes (rtol/atol 1e-5 for a float32 output, one bf16
      ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
-     decode shapes, q2, and one grouped shape (rtol 1e-5, atol
-     1e-5·max|plain|); each timed beside its plain version, its bound and
+     decode shapes, q2, and one grouped shape, with B3's split plan (rtol
+     1e-5, atol 1e-5·max|plain|); each timed beside its plain version, its
+     bound and
      a PyTorch yardstick the port never calls (scaled_dot_product_attention
      on the bf16 cache; a bf16 torch.matmul);
   6. slice, act_bits=4, int8 KV cache over 4096 slots, attention through
      B4: `Model(attn_impl="kernel")` on the engine's parameters serves the
-     same requests; B4 must run 32 times a decode step, B1 and B2 run, no
-     plain version. A replay holds B4 against its plain version at every
+     same requests; B4 must run 32 times a decode step, B1 and B2 (and
+     their folds) run, no plain version, no copy of the groups' weights.
+     A replay holds B4 against its plain version at every
      layer of every step on the path's own inputs; each decode step's
      logits are compared with the same model on `attn_impl="sdpa"` fed the
      same tokens: reported at act_bits=4 (chaotic there, see PERF.md), held
@@ -47,7 +50,8 @@ Phases, each printing one JSON line:
      torch.profiler, one line with both runs' device busy share and top
      kernels;
   8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
-     activations) through B5, 225 launches a step and no plain version;
+     activations) through B5, 225 calls a step (and their folds) and no
+     plain version;
      its prefill logits within 5 % of max|logit| of the plain versions';
   9. the kernels line, then the card's name and power limit, then the
      result line.
@@ -83,7 +87,7 @@ REPLACES = {
 }
 SOURCES = {
     "gemv_bs": "src/repro_torch/csrc/bitplane_gemv.cu",
-    "program_gemv": "src/repro_torch/csrc/program_gemv.cu",
+    "program_gemv": "src/repro_torch/csrc/bitplane_gemv.cu",
     "gemv_f": "src/repro_torch/csrc/bitplane_gemv.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
@@ -240,7 +244,7 @@ def _fold_through_workspace(kname, arg, planes, scale_t, kw, tpb):
 
 def phase_kernels(weight_bits: int, act_bits: int) -> dict:
     import torch
-    from repro_torch.core.quant import QuantSpec
+    from repro_torch.core.quant import QuantSpec, quantize_activations
     from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = {"gemv_bs": [], "gemv_f": [], "program_gemv": []}
@@ -317,43 +321,41 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
                 library_ms=lib_ms, **plan, **extra))
         del k_copies
 
-    # B2: q/k/v and up/gate, one launch per group
+    # B2: q/k/v and up/gate, one launch per group over its member table
     spec = QuantSpec(bits=act_bits)
     for gname, shapes in GROUP_SHAPES.items():
         ws = [_leaf(n, m, gen, weight_bits) for n, m in shapes]
         n = shapes[0][0]
         x = torch.randn((B, n), generator=gen, device="cuda")
-        plan = program.group_plan(ws, act_bits)
-        packed = program.pack_group(plan, ws, "cuda")
-        codes, scales, layout = program._quantize_batched(
-            (x,) * len(ws), (spec,) * len(ws))
-        codes_t = program.pack_codes(
-            plan, [codes[bi][s:s + b] for bi, s, b in layout])
-        planes_t = packed[0]
-        kw = dict(q_max=plan.q_max, p_max=plan.p_max, bn=plan.bn_max)
-        got = program.program_gemv(plan, codes_t, *packed)
-        want = ref.program_gemv_ref(codes_t, *packed, **kw)
+        table = program.group_table(ws, act_bits)
+        aq = quantize_activations(x, spec)
+        codes = [torch.nn.functional.pad(
+            aq.values, (0, table.members[0].n_pad - n),
+            value=aq.zero)] * len(ws)
+        plain_args = (codes, table.planes, table.scales, table.members,
+                      table.cols)
+        got = program.group_gemv(table, codes)
+        want = ref.group_gemv_ref(*plain_args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"program_gemv {gname}: kernel != plain "
                                  f"(max|Δ| {err})")
-        fused = program.fused_group_linears(x, ws, act_bits, packed=packed)
+        fused = program.fused_group_linears(x, ws, act_bits, table=table)
         per_leaf = [ops.bitplane_gemv_bitserial(x, w, spec) for w in ws]
         for f, p in zip(fused, per_leaf):
             if not torch.equal(f, p):
                 raise AssertionError(f"program_gemv {gname}: fused != "
                                      f"per-leaf gemv_bs")
-        k_copies = [packed] + [
-            program.pack_group(plan, [_leaf(n_, m_, gen, weight_bits)
-                                      for n_, m_ in shapes], "cuda")
-            for _ in range(copies_for(nbytes(planes_t)) - 1)]
-        ms = graph_ms([lambda p=p: program.program_gemv(plan, codes_t, *p)
-                       for p in k_copies], 50)
+        k_copies = [table] + [
+            program.group_table([_leaf(n_, m_, gen, weight_bits)
+                                 for n_, m_ in shapes], act_bits)
+            for _ in range(copies_for(nbytes(table.planes)) - 1)]
+        ms = graph_ms([lambda t=t: program.group_gemv(t, codes)
+                       for t in k_copies], 50)
         del k_copies
-        plain = eager_ms(lambda: ref.program_gemv_ref(codes_t, *packed,
-                                                      **kw))
-        m_all = sum(m for _, m in shapes)
+        plain = eager_ms(lambda: ref.group_gemv_ref(*plain_args))
+        m_all = table.cols
         wlib = [torch.randn((n, m_all), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
                 for _ in range(copies_for(n * m_all * 2))]
@@ -361,16 +363,17 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
         lib_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in wlib],
                           20)
         del wlib
-        # the group's u8 codes once (the slots share them), and each
+        # the group's u8 codes once (the members share them), and each
         # leaf's planes and scales
         t_bound, by = bound(
-            B * n + nbytes([w.planes for w in ws], [w.scale for w in ws]),
-            nbytes(fused), 2.0 * B * n * m_all, "int8")
+            B * n + nbytes(table.planes, [w.scale for w in ws]),
+            nbytes(got), 2.0 * B * n * m_all, "int8")
         rows["program_gemv"].append(dict(
             shape=gname, n=n, m=m_all, count=1, max_abs_err=err, ms=ms,
             plain_ms=plain, bound_ms=t_bound, bound_by=by,
-            plane_bound_ms=plane_bound_ms([w.planes for w in ws]),
-            library_ms=lib_ms))
+            plane_bound_ms=plane_bound_ms(table.planes),
+            library_ms=lib_ms, **dict(zip(("tiles_per_block", "splits"),
+                                          table.split(B, sms)))))
     for kname, rs in rows.items():
         for r in rs:
             emit({"phase": "kernel_check", "kernel": kname, **r})
@@ -406,8 +409,9 @@ def reset_counts() -> None:
 
 def resident_gb(eng) -> dict:
     """Device memory the engine holds after warm-up: its weight leaves'
-    bit planes (with scales and column sums), the slot-major copies of the
-    fused q/k/v and up/gate groups that B2 reads, and all that the
+    bit planes (with scales and column sums), what B2's member tables of
+    the fused q/k/v and up/gate groups hold beyond the leaves (tile scales
+    they had to copy; B2 reads the planes in place), and all that the
     allocator holds (embedding and KV cache included)."""
     import torch
     from repro_torch.core.bitplane import BitplaneWeights
@@ -418,9 +422,18 @@ def resident_gb(eng) -> dict:
         return [tree] if isinstance(tree, BitplaneWeights) else []
     planes = sum(nbytes(w.planes, w.scale, w.col_sum)
                  for w in leaves(eng.params))
-    packed = sum(nbytes(p) for _, p in eng.mvdram._packed.values())
+    packed = sum(t.owned_bytes for _, t in eng.mvdram._packed.values())
     return {"leaf_planes_gb": planes / 1e9, "packed_groups_gb": packed / 1e9,
             "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def held_no_copy(resident: dict, what: str) -> None:
+    """B2 reads the leaves in place: an engine that holds a copy of the
+    groups' weights (above 0.01 GB) fails the run."""
+    if resident["packed_groups_gb"] > 0.01:
+        raise AssertionError(f"{what}: the engine holds "
+                             f"{resident['packed_groups_gb']} GB of group "
+                             f"copies beside the leaves")
 
 
 def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
@@ -435,6 +448,8 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
     eng.generate(prompts[:, :4], max_new=2)      # pack B2 groups, warm up
     torch.cuda.synchronize()
     resident = resident_gb(eng)
+    if act_bits:
+        held_no_copy(resident, f"act_bits={act_bits}")
     reset_counts()
     t0 = time.perf_counter()
     toks = eng.generate(prompts, max_new=NEW)
@@ -631,9 +646,11 @@ QMM_SHAPES = {"q/k/v/wo 4096→4096": (4096, 4096, -1, 4),
 def phase_quant_matmul(weight_bits: int) -> list:
     import torch
     from repro_torch.core.quant import QuantSpec, quantize_weights
+    from repro_torch.kernels.bitplane_gemv.kernel import split_plan
     from repro_torch.kernels.bitplane_gemv.ops import _pad_axis, _pick_blocks
     from repro_torch.kernels.quant_matmul import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
 
     def leaf(n, m, gs):
@@ -676,9 +693,11 @@ def phase_quant_matmul(weight_bits: int) -> list:
         lib_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in wlib],
                           20)
         del wlib
+        plan = split_plan(a.shape[1] // bn, m, B, sms)
         rows.append(dict(shape=name, n=n, m=m, group_size=gs, count=count,
                          max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+                         bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
+                         tiles_per_block=plan[0], splits=plan[1]))
     for r in rows:
         emit({"phase": "kernel_check", "kernel": "quant_matmul", **r})
     return rows
@@ -744,7 +763,9 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
     if seen["launches"]["decode_attention"] != want:
         raise AssertionError(f"B4 launched {seen['launches']} times, not "
                              f"{want} (32 a decode step)")
-    for k in ("gemv_bs", "program_gemv"):
+    held_no_copy(resident, "act_bits=4, attention through B4")
+    for k in ("gemv_bs", "gemv_bs_fold", "program_gemv",
+              "program_gemv_fold"):
         if seen["launches"][k] <= 0:
             raise AssertionError(f"{k} never launched ({seen})")
     if any(seen["plain"].values()):
@@ -888,6 +909,8 @@ def phase_baseline_slice(cfg, prompts) -> dict:
     if seen["launches"]["quant_matmul"] != per_pass * NEW:
         raise AssertionError(f"B5 launched {seen['launches']} times, not "
                              f"{per_pass} a forward pass")
+    if seen["launches"]["quant_matmul_fold"] <= 0:
+        raise AssertionError(f"B5's fold never launched ({seen})")
     if any(seen["plain"].values()):
         raise AssertionError(f"a plain version ran on the card ({seen})")
     if not torch.equal(toks[:, :PROMPT], prompts):
@@ -957,7 +980,8 @@ def main() -> int:
           "setup_seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     s4 = phase_slice(cfg, qparams, prompts, 4,
-                     ("gemv_bs", "gemv_bs_fold", "program_gemv"))
+                     ("gemv_bs", "gemv_bs_fold", "program_gemv",
+                      "program_gemv_fold"))
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
     rows["decode_attention"] = phase_decode_attention()
     rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
@@ -972,11 +996,12 @@ def main() -> int:
     launches["gemv_f_fold"] = sf["launches"]["gemv_f_fold"]
     launches["decode_attention"] = sa["launches"]["decode_attention"]
     launches["quant_matmul"] = sb["launches"]["quant_matmul"]
+    launches["quant_matmul_fold"] = sb["launches"]["quant_matmul_fold"]
     # per kernel, its shapes summed as one decode layer (plus lm_head) calls
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the
     # names PERF.md's kernel table uses, `plane_bound_ms` (bit-plane
     # kernels only) is the planes alone at the memory rate, and
-    # `fold_launches` (B1, B3) the second launches of split calls
+    # `fold_launches` (B1, B2, B3, B5) the second launches of split calls
     kernels = []
     for kname, rs in rows.items():
         keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (

@@ -79,10 +79,9 @@ class KernelBackend(Backend):
         if not act_bits or len(ws) < 2:
             return super().linear_group(engine, x, ws, act_bits)
         from ..kernels.bitplane_gemv import program as bp_program
-        packed = (engine.packed_group(ws, act_bits, x.device)
-                  if engine is not None else None)
-        return bp_program.fused_group_linears(x, ws, act_bits,
-                                              packed=packed)
+        table = (engine.packed_group(ws, act_bits)
+                 if engine is not None else None)
+        return bp_program.fused_group_linears(x, ws, act_bits, table=table)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ pricing wait for the simulator's port (ROADMAP A9).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import TYPE_CHECKING, Optional, Sequence, Union
 
 import torch
 
@@ -15,15 +15,18 @@ from . import backends as _backends
 from .backends import Backend
 from .bitplane import BitplaneWeights
 
+if TYPE_CHECKING:
+    from ..kernels.bitplane_gemv.program import GroupTable
+
 
 class MVDRAMEngine:
     """Routes every lane-batched quantized linear of a serving model, and
-    holds the per-group packed weights of the fused B2 launches."""
+    holds the member tables of the fused B2 launches."""
 
     def __init__(self):
         self.routed_linears = 0   # serving linears routed through linear()
-        # (act_bits, device, leaf identities) → (leaves, packed group);
-        # holding the leaves keeps their storage, and so the keys, alive
+        # (act_bits, leaf identities) → (leaves, member table); holding
+        # the leaves keeps their storage, and so the keys, alive
         self._packed: dict = {}
 
     def linear(self, x: torch.Tensor, w: BitplaneWeights,
@@ -44,20 +47,21 @@ class MVDRAMEngine:
         return _backends.get_backend(backend).linear_group(
             self, x, tuple(ws), act_bits)
 
-    def packed_group(self, ws: Sequence[BitplaneWeights], act_bits: int,
-                     device) -> tuple:
-        """The slot-major packing of a group's weights for the fused
-        launch, packed on first use and cached: weights are static, so every
-        later decode step reuses it. The JAX package re-packs inside each
+    def packed_group(self, ws: Sequence[BitplaneWeights], act_bits: int
+                     ) -> GroupTable:
+        """The member table of a group's fused B2 launch
+        (`program.GroupTable`: each member reads its leaf's planes and
+        scales in place, so it holds no copy of the weights), built on first
+        use and cached: weights are static, so every later decode step
+        reuses it. The JAX package re-packs a slot-major copy inside each
         traced call; the numbers are the same."""
         from ..kernels.bitplane_gemv import program as bp_program
-        key = (act_bits, str(device)) + tuple(
+        key = (act_bits,) + tuple(
             (w.planes.data_ptr(), tuple(w.planes.shape),
              w.scale.data_ptr()) for w in ws)
         hit = self._packed.get(key)
         if hit is None:
-            plan = bp_program.group_plan(ws, act_bits)
-            hit = (tuple(ws), bp_program.pack_group(plan, ws, device))
+            hit = (tuple(ws), bp_program.group_table(ws, act_bits))
             self._packed[key] = hit
         return hit[1]
 

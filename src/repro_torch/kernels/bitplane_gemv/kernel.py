@@ -1,13 +1,16 @@
 """Wrappers of the per-leaf bit-plane GeMV CUDA kernels (`csrc/
 bitplane_gemv.cu`): B1 `gemv_bs` (integer activation codes) and B3
 `gemv_f` (float activations), the counterparts of the JAX package's
-`gemv_bs_pallas` and `gemv_f_pallas`.
+`gemv_bs_pallas` and `gemv_f_pallas`; and the member table (`Member`,
+`Table`) through which B2 (`program.py`) launches the same block body over
+a group.
 
 A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor goes
 to the plain version in `ref.py`. There is no other fallback.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -31,6 +34,35 @@ ROWS = 4
 MAX_TILES_PER_BLOCK = 8
 #: blocks a launch aims for on each SM (chosen, not tuned on the card)
 BLOCKS_PER_SM = 4
+#: members of a by-value table (B2's group launch)
+MAX_MEMBERS = 8
+
+
+class Member(ctypes.Structure):
+    """One weight matrix of a launch, field for field the CUDA source's
+    `Member`: pointers to its activations `a`, planes, tile scales and
+    output; element strides (planes: between planes, tiles and words;
+    activations: between batch rows and tiles; scales between tiles; output
+    between rows); its first workspace column `col`, columns `m`, live
+    `words`, `tiles`, `bn`, `q`, code `mask`, zero points `z_a` and `zero`,
+    first strip `strip0` of the launch and whether 16-byte loads are
+    allowed (`vec`)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("a", "planes", "scales",
+                                                 "out")]
+                + [(f, ctypes.c_longlong) for f in (
+                    "a_row", "a_tile", "plane_stride", "tile_stride")]
+                + [(f, ctypes.c_int) for f in (
+                    "word_stride", "scale_stride", "out_row", "col", "m",
+                    "words", "tiles", "bn", "q", "mask", "z_a", "zero",
+                    "strip0", "vec", "pad0", "pad1")])
+
+
+class Table(ctypes.Structure):
+    """The by-value member table of a group launch (the CUDA `Table`)."""
+
+    _fields_ = [("m", Member * MAX_MEMBERS), ("n", ctypes.c_int),
+                ("pad", ctypes.c_int)]
 
 
 def split_plan(tiles: int, m: int, b: int, sms: int) -> tuple:

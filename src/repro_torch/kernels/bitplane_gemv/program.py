@@ -1,22 +1,29 @@
 """Fused multi-layer bit-plane GeMV — one launch for a whole concurrency
 group (q/k/v, up/gate): port of the JAX package's
-`kernels/bitplane_gemv/program.py`, around the CUDA kernel B2
-(`csrc/program_gemv.cu`).
+`kernels/bitplane_gemv/program.py`, around the CUDA kernel B2 (`group_kernel`
+in `csrc/bitplane_gemv.cu`, the block body of B1 over a table of members).
 
-Each layer keeps its own blocking (bn_l, bm_l) from `_pick_blocks`, and its
-tiles are padded up to the group's (BN, BM) envelope with exactness-
-preserving values — zero plane bits, codes padded with the layer's z_a, and
-the epilogue's `+ BN·z_a·z_w` term on the padded BN — so the padded rows
-cancel algebraically and the fused result is integer-identical to the
-per-leaf path (`ops.bitplane_gemv_bitserial`). Fully padded grid cells
-carry z_a = z_w = 0, zero codes and zero scales and contribute exactly 0.
+The main path (`fused_group_linears`, `run_program`) describes each layer
+of the group as a member of a `GroupTable`: its own leaf planes, read in
+place, its own tile scales, blocking (bn from `_pick_blocks`), q, p and
+zero points, and its own column range of one (B, ΣM) output. The table is
+static per group and cached by `MVDRAMEngine.packed_group`; a call
+quantizes the input once, pads the codes to the widest member and launches
+once. Each member's result is integer-identical to the per-leaf path
+(`ops.bitplane_gemv_bitserial`), and its f32 epilogue runs in the same tile
+order, so the outputs are bitwise equal.
 
-The weights are packed into the slot-major layout once per group and
-reused on every call (`fused_group_linears(..., packed=)`); the per-call
-work is the activation side only.
+The JAX module's slot-major API stays as its port: `build_plan`,
+`pack_weights`, `pack_codes`, `pack_params`, `gather_outputs` and the
+slot-major `program_gemv`, whose layers' tiles are padded up to the group's
+(BN, BM) envelope with exactness-preserving values (zero plane bits, codes
+padded with the layer's z_a, the epilogue's `+ BN·z_a·z_w` on the padded BN;
+fully padded cells carry z_a = z_w = 0, zero codes and zero scales). On the
+card it runs the same kernel, each slot a member described by strides.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Sequence
@@ -30,8 +37,10 @@ from . import kernel as bp_kernel
 from . import ops as bp_ops
 from . import ref
 
-#: launches of the fused CUDA kernel (its plain version counts in ref.CALLS)
-LAUNCHES = {"program_gemv": 0}
+#: launches of the fused CUDA kernel (its plain version counts in
+#: ref.CALLS); `program_gemv_fold` the second launch of a call whose
+#: reduction is split over blocks
+LAUNCHES = {"program_gemv": 0, "program_gemv_fold": 0}
 
 
 def static_zero(spec: QuantSpec) -> int:
@@ -184,15 +193,243 @@ def pack_params(plan: ProgramKernelPlan) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# the fused kernel
+# the member table: each layer of a group read in place from its own leaf
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MemberTiles:
+    """Static geometry of one member of a group launch: its blocking, bits
+    and zero points, and where its columns lie in the group's (B, ΣM)
+    output and its strips in the launch's grid."""
+
+    m: int          # output columns
+    q: int          # weight bits
+    p: int          # activation bits
+    z_a: int        # activation zero point
+    z_w: int        # weight zero point
+    bn: int         # this layer's own reduction block
+    tiles: int      # reduction tiles; the codes are read to tiles·bn
+    col: int        # first column in the group's output
+    strip0: int     # first 128-column strip of the launch's grid
+
+    @property
+    def n_pad(self) -> int:
+        return self.tiles * self.bn
+
+    @property
+    def strips(self) -> int:
+        return -(-self.m // bp_kernel.STRIP)
+
+
+def member_tiles(plan: ProgramKernelPlan) -> tuple:
+    """The members of a plan's layers, in layer order, their columns and
+    strips laid end to end."""
+    out, col, strip = [], 0, 0
+    for L in plan.layers:
+        out.append(MemberTiles(m=L.m, q=L.q, p=L.p, z_a=L.z_a, z_w=L.z_w,
+                               bn=L.bn, tiles=L.n_tiles, col=col,
+                               strip0=strip))
+        col += L.m
+        strip += out[-1].strips
+    return tuple(out)
+
+
+def tile_scales(bw, bn: int, tiles: int) -> torch.Tensor:
+    """A leaf's (tiles, M) per-tile scales, as `ops._expand_scales` gives
+    them, copied only where the leaf's own cannot serve: per-channel scales
+    (one row) as a stride-0 view, per-group scales with one group a tile as
+    they are. No tile starts past the leaf's rows in either case, so no row
+    is zeroed."""
+    g, m = bw.scale.shape
+    if g == 1:
+        return bw.scale.expand(tiles, m)
+    if g == tiles and bw.n == g * bn:
+        return bw.scale
+    return bp_ops._expand_scales(bw, bn, tiles * bn).contiguous()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupTable:
+    """A group's static launch description, built once per group: its
+    members and the tensors they read in place (each leaf's planes and tile
+    scales). `owned_bytes` is the device memory it holds beyond the
+    leaves': the tile scales it had to copy."""
+
+    members: tuple      # MemberTiles per layer
+    planes: tuple       # each member's (q, W, M) int32 leaf planes
+    scales: tuple       # each member's (tiles, M) f32 tile scales
+    owned_bytes: int
+    _ctable: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def cols(self) -> int:
+        return sum(M.m for M in self.members)
+
+    @property
+    def strips(self) -> int:
+        return sum(M.strips for M in self.members)
+
+    @property
+    def tiles_max(self) -> int:
+        return max(M.tiles for M in self.members)
+
+    @property
+    def q_max(self) -> int:
+        return max(M.q for M in self.members)
+
+    def split(self, b: int, sms: int) -> tuple:
+        """(tiles_per_block, splits): `kernel.split_plan` over the group's
+        strips and its longest reduction; a member of fewer tiles leaves
+        the blocks of its later splits idle."""
+        return bp_kernel.split_plan(self.tiles_max,
+                                    self.strips * bp_kernel.STRIP, b, sms)
+
+    def workspace_shape(self, b: int, splits: int) -> tuple:
+        """Each tile's int32 correction for the fold, (tiles, B, ΣM), or
+        nothing with one split."""
+        return (0,) if splits == 1 else (self.tiles_max, b, self.cols)
+
+    def ctable(self) -> "bp_kernel.Table":
+        """The by-value kernel table with every static field set, built on
+        first use; a launch fills in its codes and output pointers (the
+        kernel parameter is copied at the launch, so the next launch may
+        overwrite them)."""
+        tab = self._ctable.get("table")
+        if tab is None:
+            tab = bp_kernel.Table()
+            tab.n = len(self.members)
+            for i, (M, pl, sc) in enumerate(zip(self.members, self.planes,
+                                                self.scales)):
+                e = tab.m[i]
+                e.planes, e.scales = pl.data_ptr(), sc.data_ptr()
+                e.a_tile = M.bn
+                e.plane_stride, e.word_stride = pl.stride(0), pl.stride(1)
+                e.tile_stride = M.bn // 32 * pl.stride(1)
+                e.scale_stride, e.out_row = sc.stride(0), self.cols
+                e.col, e.m, e.words = M.col, M.m, pl.shape[1]
+                e.tiles, e.bn, e.q, e.mask = M.tiles, M.bn, M.q, (1 << M.p) - 1
+                e.z_a, e.zero, e.strip0 = M.z_a, M.z_w, M.strip0
+                e.vec = int(M.m % 4 == 0 and pl.data_ptr() % 16 == 0)
+            self._ctable["table"] = tab
+        return tab
+
+
+def member_table(plan: ProgramKernelPlan, leaves: Sequence) -> GroupTable:
+    """The member table of a plan's layers (`leaves[l]`: BitplaneWeights)."""
+    members = member_tiles(plan)
+    scales = tuple(tile_scales(bw, M.bn, M.tiles)
+                   for M, bw in zip(members, leaves))
+    owned = sum(s.numel() * s.element_size()
+                for s, bw in zip(scales, leaves)
+                if s.data_ptr() != bw.scale.data_ptr())
+    return GroupTable(members=members,
+                      planes=tuple(bw.planes for bw in leaves),
+                      scales=scales, owned_bytes=owned)
+
+
+def _check_group(table: GroupTable, codes: Sequence[torch.Tensor]) -> int:
+    if len(codes) != len(table.members):
+        raise ValueError(f"program_gemv: {len(codes)} code tensors for "
+                         f"{len(table.members)} members")
+    b = codes[0].shape[0]
+    for c, M in zip(codes, table.members):
+        if (c.dtype != torch.uint8 or c.ndim != 2 or c.shape[0] != b
+                or c.shape[1] < M.n_pad or c.stride(1) != 1):
+            raise ValueError(
+                f"program_gemv: codes must be uint8 (B, >= {M.n_pad}) rows "
+                f"of unit stride, all of B = {b}; got {c.dtype} "
+                f"{tuple(c.shape)} strides {c.stride()}")
+    return b
+
+
+def group_gemv(table: GroupTable, codes: Sequence[torch.Tensor], *,
+               fidelity: str = "code") -> torch.Tensor:
+    """ONE launch for the whole group. codes[l]: member l's (B, >= n_pad_l)
+    uint8 p-bit codes padded with its z_a (members that share an input pass
+    the same tensor) → (B, ΣM) f32 un-activation-scaled, member l in
+    columns [col_l, col_l + m_l). CUDA tensors go to the kernel B2, CPU
+    tensors to its plain version; the kernel always runs the bit-serial
+    schedule, which gives the integers of either fidelity."""
+    if fidelity not in ("code", "bitserial"):
+        raise ValueError(
+            f"fidelity must be 'code' or 'bitserial', got {fidelity!r}")
+    b = _check_group(table, codes)
+    if not codes[0].is_cuda:
+        return ref.group_gemv_ref(codes, table.planes, table.scales,
+                                  table.members, table.cols,
+                                  fidelity=fidelity)
+    dev = codes[0].device
+    if len(table.members) > bp_kernel.MAX_MEMBERS:
+        raise ValueError(f"program_gemv: {len(table.members)} members, the "
+                         f"kernel's table holds {bp_kernel.MAX_MEMBERS}")
+    for c, pl, sc, M in zip(codes, table.planes, table.scales,
+                            table.members):
+        if c.device != dev or pl.device != dev or sc.device != dev:
+            raise ValueError(f"program_gemv: codes, planes and scales must "
+                             f"all be on {dev}")
+        if pl.dtype != torch.int32 or not pl.is_contiguous() \
+                or sc.dtype != torch.float32 or sc.stride(-1) != 1:
+            raise ValueError("program_gemv: planes must be contiguous "
+                             "int32, scales f32 rows of unit stride")
+        if M.bn % 32 or not 32 <= M.bn <= bp_kernel.MAX_BN \
+                or not 1 <= max(M.q, M.p) <= bp_kernel.MAX_BITS:
+            raise ValueError(f"program_gemv: bn={M.bn}, q={M.q}, p={M.p} "
+                             f"outside what the kernel takes")
+    tpb, splits = table.split(b, bp_kernel._sms(dev))
+    out = torch.empty((b, table.cols), dtype=torch.float32, device=dev)
+    ws = torch.empty(table.workspace_shape(b, splits), dtype=torch.int32,
+                     device=dev)
+    tab = table.ctable()
+    for i, (c, M) in enumerate(zip(codes, table.members)):
+        e = tab.m[i]
+        e.a, e.a_row = c.data_ptr(), c.stride(0)
+        e.out = out.data_ptr() + 4 * M.col
+    lib = build.library("bitplane_gemv")
+    LAUNCHES["program_gemv"] += 1
+    LAUNCHES["program_gemv_fold"] += int(splits > 1)
+    build.check(lib.gemv_group_launch(
+        ctypes.addressof(tab), None, tab.n, table.strips,
+        ws.data_ptr() if splits > 1 else None, table.cols, b, table.q_max,
+        tpb, splits, bp_kernel._stream()), "program_gemv")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the slot-major entry (the JAX module's layout)
+# ---------------------------------------------------------------------------
+
+def _slot_members(plan: ProgramKernelPlan, codes_t, planes_t, scale_t,
+                  out) -> "ctypes.Array":
+    """Each slot of the envelope as a member: its layer's live tiles, the
+    envelope's BN as bn, strides over the slot-major blocks."""
+    s, nt, b, bn = codes_t.shape
+    bm, wpt, q_max = plan.bm_max, bn // 32, plan.q_max
+    members = (bp_kernel.Member * s)()
+    for k, l in enumerate(plan.slot_layer):
+        L, e = plan.layers[l], members[k]
+        e.a = codes_t.data_ptr() + k * nt * b * bn
+        e.planes = planes_t.data_ptr() + 4 * k * nt * q_max * wpt * bm
+        e.scales = scale_t.data_ptr() + 4 * k * nt * bm
+        e.out = out.data_ptr() + 4 * k * b * bm
+        e.a_row, e.a_tile = bn, b * bn
+        e.plane_stride, e.tile_stride = wpt * bm, q_max * wpt * bm
+        e.word_stride = e.scale_stride = e.out_row = e.m = bm
+        e.col, e.strip0 = k * bm, k * bm // bp_kernel.STRIP
+        e.words, e.tiles, e.bn = L.n_tiles * wpt, L.n_tiles, bn
+        e.q, e.mask, e.z_a, e.zero = L.q, (1 << plan.p_max) - 1, L.z_a, L.z_w
+        e.vec = 1
+    return members
+
 
 def program_gemv(plan: ProgramKernelPlan, codes_t, planes_t, scale_t,
                  params_t, *, fidelity: str = "code") -> torch.Tensor:
-    """ONE launch for the whole group → (S, B, BM) f32 un-activation-scaled
-    outputs, gathered per layer by `gather_outputs`. CUDA tensors go to the
-    kernel B2; CPU tensors to its plain version. The kernel always runs the
-    bit-serial schedule, which gives the integers of either fidelity."""
+    """The slot-major entry: ONE launch for the whole plan → (S, B, BM) f32
+    un-activation-scaled outputs, gathered per layer by `gather_outputs`.
+    CUDA tensors go to the kernel B2, each slot a member whose z_a and z_w
+    are its layer's (`pack_params` gives the same, and zeros on the fully
+    padded tiles, which the kernel skips: their scales are zero); CPU
+    tensors to its plain version. The slots' table lies in device memory
+    (it outgrows a kernel parameter)."""
     if fidelity not in ("code", "bitserial"):
         raise ValueError(
             f"fidelity must be 'code' or 'bitserial', got {fidelity!r}")
@@ -214,18 +451,26 @@ def program_gemv(plan: ProgramKernelPlan, codes_t, planes_t, scale_t,
                 f"{codes_t.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
     if plan.bn_max > bp_kernel.MAX_BN or max(plan.q_max, plan.p_max) > \
-            bp_kernel.MAX_BITS:
+            bp_kernel.MAX_BITS or planes_t.data_ptr() % 16:
         raise ValueError(f"program_gemv: envelope BN={plan.bn_max}, "
                          f"q={plan.q_max}, p={plan.p_max} exceeds the kernel")
     out = torch.empty((s, b, plan.bm_max), dtype=torch.float32,
                       device=codes_t.device)
-    lib = build.library("program_gemv")
+    cols = s * plan.bm_max
+    tiles = max(L.n_tiles for L in plan.layers)
+    tpb, splits = bp_kernel.split_plan(tiles, cols, b,
+                                       bp_kernel._sms(codes_t.device))
+    ws = torch.empty((tiles, b, cols) if splits > 1 else (0,),
+                     dtype=torch.int32, device=codes_t.device)
+    members = _slot_members(plan, codes_t, planes_t, scale_t, out)
+    gtab = torch.frombuffer(members, dtype=torch.uint8).to(codes_t.device)
+    lib = build.library("bitplane_gemv")
     LAUNCHES["program_gemv"] += 1
-    build.check(lib.program_gemv_launch(
-        params_t.data_ptr(), codes_t.data_ptr(), planes_t.data_ptr(),
-        scale_t.data_ptr(), out.data_ptr(), s, nt, b, plan.bn_max,
-        plan.bm_max, plan.q_max, plan.p_max, bp_kernel._stream()),
-        "program_gemv")
+    LAUNCHES["program_gemv_fold"] += int(splits > 1)
+    build.check(lib.gemv_group_launch(
+        None, gtab.data_ptr(), s, cols // bp_kernel.STRIP,
+        ws.data_ptr() if splits > 1 else None, cols, b, plan.q_max, tpb,
+        splits, bp_kernel._stream()), "program_gemv")
     return out
 
 
@@ -240,6 +485,14 @@ def gather_outputs(plan: ProgramKernelPlan, out: torch.Tensor) -> list:
         parts = [out[slot_of[(l, r)], :, :L.bm] for r in range(L.m_tiles)]
         outs.append(torch.cat(parts, dim=-1)[:, :L.m])
     return outs
+
+
+def pack_group(plan: ProgramKernelPlan, leaves: Sequence, device) -> tuple:
+    """(planes_t, scale_t, params_t) of a plan in the slot-major layout,
+    ready for the slot-major `program_gemv`."""
+    planes_t, scale_t = pack_weights(plan, tuple(leaves))
+    params_t = torch.from_numpy(pack_params(plan)).to(device)
+    return planes_t, scale_t, params_t
 
 
 # ---------------------------------------------------------------------------
@@ -281,31 +534,27 @@ def _quantize_batched(xs: Sequence[torch.Tensor],
 
 def run_program(plan: ProgramKernelPlan, leaves: Sequence,
                 xs: Sequence[torch.Tensor], specs: Sequence[QuantSpec], *,
-                fidelity: str = "code", packed: Optional[tuple] = None
+                fidelity: str = "code", table: Optional[GroupTable] = None
                 ) -> tuple:
-    """Quantize each layer's (B, n_l) activations, execute the whole group
-    as ONE fused launch, return per-layer (B, m_l) f32 outputs —
-    integer-identical to per-leaf `bitplane_gemv_bitserial` calls.
+    """Quantize each layer's (B, n_l) activations, execute the whole plan
+    as ONE launch over its member table, return per-layer (B, m_l) f32
+    outputs — bitwise the per-leaf `bitplane_gemv_bitserial` calls'.
 
-    `packed` is `(planes_t, scale_t, params_t)` from `pack_group` — the
-    weights are static, so callers that run many steps pack them once."""
-    if packed is None:
-        packed = pack_group(plan, leaves, xs[0].device)
-    planes_t, scale_t, params_t = packed
+    `table` is the plan's `member_table` — the weights are static, so
+    callers that run many steps build it once."""
+    if table is None:
+        table = member_table(plan, leaves)
     codes, scales, layout = _quantize_batched(xs, specs)
-    codes_t = pack_codes(plan, [codes[bi][s:s + b] for bi, s, b in layout])
-    out = program_gemv(plan, codes_t, planes_t, scale_t, params_t,
-                       fidelity=fidelity)
-    outs = gather_outputs(plan, out)
-    return tuple(o * scales[bi][s:s + b]
-                 for o, (bi, s, b) in zip(outs, layout))
-
-
-def pack_group(plan: ProgramKernelPlan, leaves: Sequence, device) -> tuple:
-    """(planes_t, scale_t, params_t) of a group, ready for `run_program`."""
-    planes_t, scale_t = pack_weights(plan, tuple(leaves))
-    params_t = torch.from_numpy(pack_params(plan)).to(device)
-    return planes_t, scale_t, params_t
+    # each bucket's codes padded once with its z_a, to its widest member
+    width, z_a = [0] * len(codes), [0] * len(codes)
+    for M, (bi, _s, _b) in zip(table.members, layout):
+        width[bi], z_a[bi] = max(width[bi], M.n_pad), M.z_a
+    padded = [torch.nn.functional.pad(c, (0, w - c.shape[1]), value=z)
+              for c, w, z in zip(codes, width, z_a)]
+    out = group_gemv(table, [padded[bi][s:s + b] for bi, s, b in layout],
+                     fidelity=fidelity)
+    return tuple(out[:, M.col:M.col + M.m] * scales[bi][s:s + b]
+                 for M, (bi, s, b) in zip(table.members, layout))
 
 
 def group_plan(ws: Sequence, act_bits: int) -> ProgramKernelPlan:
@@ -314,16 +563,21 @@ def group_plan(ws: Sequence, act_bits: int) -> ProgramKernelPlan:
                              groups=(tuple(range(len(ws))),))
 
 
+def group_table(ws: Sequence, act_bits: int) -> GroupTable:
+    """The member table `fused_group_linears` launches a group with."""
+    return member_table(group_plan(ws, act_bits), ws)
+
+
 def fused_group_linears(x: torch.Tensor, ws: Sequence, act_bits: int, *,
                         fidelity: str = "code",
-                        packed: Optional[tuple] = None) -> tuple:
+                        table: Optional[GroupTable] = None) -> tuple:
     """k independent linears sharing ONE input (q/k/v, up/gate) as one
     launch. The input is quantized once — bitwise the same as quantizing
-    per leaf."""
+    per leaf — and padded once, to the widest member's blocks."""
     spec = QuantSpec(bits=act_bits)
     plan = group_plan(ws, act_bits)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     outs = run_program(plan, tuple(ws), (x2,) * len(ws),
-                       (spec,) * len(ws), fidelity=fidelity, packed=packed)
+                       (spec,) * len(ws), fidelity=fidelity, table=table)
     return tuple(o.reshape(*lead, bw.m) for o, bw in zip(outs, ws))

@@ -69,6 +69,14 @@ def gemv_bs_ref(a_codes, planes, scale_tiles, *, q: int, p: int, z_a: int,
     dot per weight plane against the codes, `"bitserial"` the q·p dots of
     the decomposed planes — identical integers."""
     CALLS["gemv_bs"] += 1
+    return _gemv_bs(a_codes, planes, scale_tiles, q=q, p=p, z_a=z_a,
+                    z_w=z_w, bn=bn, fidelity=fidelity)
+
+
+def _gemv_bs(a_codes, planes, scale_tiles, *, q, p, z_a, z_w, bn,
+             fidelity):
+    """`gemv_bs_ref`'s arithmetic, uncounted (B2's plain version runs it
+    per member)."""
     b, n = a_codes.shape
     m = planes.shape[-1]
     t = n // bn
@@ -128,3 +136,20 @@ def program_gemv_ref(codes_t, planes_t, scale_t, params_t, *, q_max: int,
     z_w = params_t[..., 1, None, None].to(torch.float64)
     corr = acc - z_a * col_sum - z_w * sum_a + bn * z_a * z_w
     return _fma_chain(corr, scale_t)
+
+
+def group_gemv_ref(codes, planes, scale_tiles, members, cols: int, *,
+                   fidelity: str = "code") -> torch.Tensor:
+    """Same contract as `program.group_gemv`: member l (`members[l]`, with
+    its col, q, p, z_a, z_w and bn) is `gemv_bs_ref` in its own blocking
+    on codes[l] (B, >= n_pad_l), its planes (q, W, M) and tile scales
+    (n_pad_l/bn, M), written to columns [col, col + M) of the (B, cols)
+    output. Counts one call of B2's plain version."""
+    CALLS["program_gemv"] += 1
+    out = torch.zeros((codes[0].shape[0], cols), dtype=torch.float32,
+                      device=codes[0].device)
+    for c, pl, st, mb in zip(codes, planes, scale_tiles, members):
+        out[:, mb.col:mb.col + pl.shape[-1]] = _gemv_bs(
+            c[:, :st.shape[0] * mb.bn], pl, st, q=mb.q, p=mb.p, z_a=mb.z_a,
+            z_w=mb.z_w, bn=mb.bn, fidelity=fidelity)
+    return out

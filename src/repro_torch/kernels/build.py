@@ -36,11 +36,9 @@ SIGNATURES = {
         # a, planes, scales, out, ws, B, n_pad, n_words, M, q, zero, bn,
         # tiles_per_block, splits, stream
         "gemv_f_launch": [_P] * 5 + [_I] * 9 + [_P],
-    },
-    "program_gemv": {
-        # params, codes, planes, scales, out, S, NT, B, BN, BM, q_max,
-        # p_max, stream
-        "program_gemv_launch": [_P] * 5 + [_I] * 7 + [_P],
+        # table (host), table (device) or null, n, strips, ws, ws_cols, B,
+        # q_max, tiles_per_block, splits, stream
+        "gemv_group_launch": [_P, _P, _I, _I, _P] + [_I] * 5 + [_P],
     },
     "decode_attention": {
         # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, s_pad, H, Hkv,
@@ -48,8 +46,9 @@ SIGNATURES = {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     },
     "quant_matmul": {
-        # a, words, scales, out, B, n_pad, W, M, q, zero, bn, stream
-        "quant_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
+        # a, words, scales, out, ws, B, n_pad, W, M, q, zero, bn,
+        # tiles_per_block, splits, stream
+        "quant_matmul_launch": [_P] * 5 + [_I] * 9 + [_P],
     },
 }
 

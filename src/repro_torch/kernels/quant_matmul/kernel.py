@@ -9,10 +9,13 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..bitplane_gemv.kernel import _sms, _stream, split_plan
 from . import ref
 
-#: launches of the CUDA kernel (the plain version counts in ref.CALLS)
-LAUNCHES = {"quant_matmul": 0}
+#: launches of the CUDA kernel (the plain version counts in ref.CALLS):
+#: `quant_matmul` one per call, `quant_matmul_fold` the second launch of a
+#: call whose reduction is split over blocks
+LAUNCHES = {"quant_matmul": 0, "quant_matmul_fold": 0}
 
 KERNEL_BITS = (1, 2, 4, 8)   # code widths whose words the kernel unpacks
 
@@ -41,28 +44,38 @@ def _check(a, codes, scale_tiles, q: int, bn: int) -> None:
     if tuple(scale_tiles.shape) != (n // bn, m):
         raise ValueError(f"{what}: scales {tuple(scale_tiles.shape)} != "
                          f"{(n // bn, m)}")
-    if a.data_ptr() % 16:
-        raise ValueError(f"{what}: activations must be 16-byte aligned (the "
-                         f"kernel reads them 4 floats at a time)")
+
+
+def workspace_shape(splits: int, b: int, m: int) -> tuple:
+    """Each split's f32 partial, (splits, B, M), that the fold sums in
+    split order; nothing with one split. The split is B3's plan
+    (`bitplane_gemv.kernel.split_plan`): the kernel has B3's blocking."""
+    return (0,) if splits == 1 else (splits, b, m)
 
 
 def quant_matmul(a, codes, scale_tiles, *, q: int, zero: int,
                  bn: int) -> torch.Tensor:
     """a (B, N) f32 padded with 0 to a multiple of bn (itself a multiple of
     32); codes (W, M) int32, the leaf's packed words, W = ceil(n/per) (the
-    kernel reads words past W as zero codes); scale_tiles (N/bn, M) f32 →
-    (B, M) f32."""
+    plain version reads words past W as zero codes; the kernel skips them,
+    as their activations are the zero padding); scale_tiles (N/bn, M) f32
+    → (B, M) f32."""
     if not a.is_cuda:
         return ref.quant_matmul_ref(a, codes, scale_tiles, q=q, zero=zero,
                                     bn=bn)
     _check(a, codes, scale_tiles, q, bn)
     b, n = a.shape
     w, m = codes.shape
+    tiles = n // bn
+    tpb, splits = split_plan(tiles, m, b, _sms(a.device))
     out = torch.empty((b, m), dtype=torch.float32, device=a.device)
+    ws = torch.empty(workspace_shape(splits, b, m), dtype=torch.float32,
+                     device=a.device)
     lib = build.library("quant_matmul")
     LAUNCHES["quant_matmul"] += 1
+    LAUNCHES["quant_matmul_fold"] += int(splits > 1)
     build.check(lib.quant_matmul_launch(
         a.data_ptr(), codes.data_ptr(), scale_tiles.data_ptr(),
-        out.data_ptr(), b, n, w, m, q, zero, bn,
-        torch.cuda.current_stream().cuda_stream), "quant_matmul")
+        out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, n, w, m,
+        q, zero, bn, tpb, splits, _stream()), "quant_matmul")
     return out

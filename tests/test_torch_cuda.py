@@ -12,15 +12,19 @@ tails, grouped scales with bn at or below the group size, q = p = 8, and
 every path of the split plan (`kernel.split_plan`): one block owning many
 tiles, a workspace folded after splits of one tile, and splits of several
 tiles, with a ragged last one too (`tests/test_torch_bitplane_plan.py`
-checks that these shapes reach each). For flash-decode, every head size and
-cache type, GQA, windows, ragged cache lengths, lanes with no valid slot
-and the JAX wrapper's padded slot count.
+checks that these shapes reach each). B2 through its member table (mixed
+q/p and n, ragged M, grouped scales, llama2-7b's q/k/v and up/gate, at
+B = 1, 4 and 64: one split and several) and through the slot-major entry,
+bitwise; B5 at one split and several. For flash-decode, every head size
+and cache type, GQA, windows, ragged cache lengths, lanes with no valid
+slot and the JAX wrapper's padded slot count.
 """
 import pytest
 import torch
 
 from repro_torch.core.bitplane import make_bitplane_weights
-from repro_torch.core.quant import QuantSpec, quantize_weights
+from repro_torch.core.quant import (QuantSpec, quantize_activations,
+                                    quantize_weights)
 from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
 from repro_torch.kernels.decode_attention import kernel as dkernel
 from repro_torch.kernels.decode_attention import ops as dops
@@ -255,3 +259,133 @@ def test_quant_matmul_rejects_what_the_kernel_does_not_take(gen):
                                          dtype=torch.bfloat16), words,
                              torch.zeros((1, 64), device="cuda"), q=2,
                              zero=2, bn=320)
+
+
+# B2 through the member table: (n, m, q, p, groups) per member. Ragged M
+# (90, 130, 200, 40: scalar loads), mixed q/p and n, grouped scales, and
+# llama2-7b's q/k/v and up/gate; with B = 1, 4 and 64 the plans cover one
+# split and several.
+GROUPS = {
+    "ragged mixed q": [(300, 90, 2, 4, 1), (300, 130, 3, 4, 1),
+                       (300, 40, 4, 4, 1)],
+    "mixed q/p and n": [(300, 90, 2, 2, 1), (300, 90, 3, 3, 1),
+                        (300, 90, 4, 2, 1), (160, 40, 5, 4, 1)],
+    "grouped scales": [(320, 200, 2, 2, 2), (480, 130, 4, 3, 3),
+                       (512, 256, 4, 2, 1)],
+    "q/k/v": [(4096, 4096, 2, 4, 1)] * 3,
+    "up/gate": [(4096, 11008, 2, 4, 1)] * 2,
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPS))
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_group_gemv_bitwise_equals_plain_and_per_leaf(gen, name, b):
+    cfgs = GROUPS[name]
+    ws = [_leaf(gen, n, m, q, g) for n, m, q, _p, g in cfgs]
+    specs = [QuantSpec(bits=p) for _n, _m, _q, p, _g in cfgs]
+    xs = [torch.randn((b, n), generator=gen, device="cuda")
+          for n, *_ in cfgs]
+    plan = program.build_plan(tuple(
+        (w.n, w.m, w.bits, w.scale.shape[0], w.zero, s.bits,
+         program.static_zero(s)) for w, s in zip(ws, specs)))
+    table = program.member_table(plan, ws)
+    _, splits = table.split(b, kernel._sms(torch.device("cuda")))
+    c0, l0 = dict(ref.CALLS), dict(program.LAUNCHES)
+    got = program.run_program(plan, ws, xs, specs, table=table)
+    torch.cuda.synchronize()
+    assert ref.CALLS == c0                   # no plain version on the card
+    assert program.LAUNCHES["program_gemv"] == l0["program_gemv"] + 1
+    assert program.LAUNCHES["program_gemv_fold"] == \
+        l0["program_gemv_fold"] + int(splits > 1)
+    for g_, w, x, spec in zip(got, ws, xs, specs):
+        assert torch.equal(g_, ops.bitplane_gemv_bitserial(x, w, spec))
+        assert torch.equal(g_, ops.bitplane_gemv_bitserial(
+            x, w, spec, impl="reference"))
+    # the kernel against the member table's plain version on the same
+    # codes: padded with z_a to the member's blocks, then 3 columns wider
+    codes = [torch.nn.functional.pad(torch.nn.functional.pad(
+        torch.randint(0, 1 << M.p, (b, w.n), generator=gen,
+                      device="cuda").to(torch.uint8),
+        (0, M.n_pad - w.n), value=M.z_a), (0, 3))
+        for M, w in zip(table.members, ws)]
+    k = program.group_gemv(table, codes)
+    want = ref.group_gemv_ref(codes, table.planes, table.scales,
+                              table.members, table.cols)
+    torch.cuda.synchronize()
+    assert torch.equal(k, want)
+
+
+@pytest.mark.parametrize("name", ["ragged mixed q", "mixed q/p and n",
+                                  "grouped scales", "q/k/v"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_slot_major_program_gemv_on_the_new_kernel(gen, name, b):
+    """The slot-major entry, each slot a member described by strides,
+    bitwise against its plain version and, gathered, against per-leaf
+    B1."""
+    cfgs = GROUPS[name]
+    ws = [_leaf(gen, n, m, q, g) for n, m, q, _p, g in cfgs]
+    ps = [p for *_, p, _g in cfgs]
+    specs = [QuantSpec(bits=p) for p in ps]
+    plan = program.build_plan(tuple(
+        (w.n, w.m, w.bits, w.scale.shape[0], w.zero, s.bits,
+         program.static_zero(s)) for w, s in zip(ws, specs)))
+    packed = program.pack_group(plan, ws, "cuda")
+    xs = [torch.randn((b, w.n), generator=gen, device="cuda") for w in ws]
+    aqs = [quantize_activations(x, s) for x, s in zip(xs, specs)]
+    codes_t = program.pack_codes(plan, [a.values for a in aqs])
+    l0 = program.LAUNCHES["program_gemv"]
+    got = program.program_gemv(plan, codes_t, *packed)
+    want = ref.program_gemv_ref(codes_t, *packed, q_max=plan.q_max,
+                                p_max=plan.p_max, bn=plan.bn_max)
+    torch.cuda.synchronize()
+    assert program.LAUNCHES["program_gemv"] == l0 + 1
+    assert torch.equal(got, want)
+    for o, a, w, x, s in zip(program.gather_outputs(plan, got), aqs, ws, xs,
+                             specs):
+        assert torch.equal(o * a.scale,
+                           ops.bitplane_gemv_bitserial(x, w, s))
+
+
+def test_group_gemv_rejects_what_the_kernel_does_not_take(gen):
+    ws = [_leaf(gen, 256, 64, 2, 1) for _ in range(9)]
+    table = program.group_table(ws, 4)
+    codes = torch.full((2, 256), 8, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="members"):
+        program.group_gemv(table, [codes] * 9)
+    table = program.group_table(ws[:3], 4)
+    with pytest.raises(ValueError, match="uint8"):
+        program.group_gemv(table, [codes.int()] * 3)
+    with pytest.raises(ValueError, match="uint8"):
+        program.group_gemv(table, [codes[:, :128]] * 3)
+    with pytest.raises(ValueError, match="on cuda"):
+        program.group_gemv(table, [codes, codes.cpu(), codes])
+
+
+# (n, m, B, q, group size): several splits (decode), one split (64-row
+# prefill of a wide output), grouped scales with 32 tiles, ragged ends
+QMM_PLANS = [(4096, 4096, 4, 2, -1), (11008, 4096, 4, 2, -1),
+             (4096, 32000, 4, 2, -1), (4096, 32000, 64, 2, -1),
+             (4096, 11008, 64, 2, -1), (4096, 4096, 64, 2, 128),
+             (11008, 200, 64, 4, -1), (1000, 90, 64, 1, -1),
+             (2048, 130, 9, 8, 256)]
+
+
+@pytest.mark.parametrize("n,m,b,q,gs", QMM_PLANS)
+def test_quant_matmul_split_plans(gen, n, m, b, q, gs):
+    """B5 at one split and several, within rtol 1e-5 / atol 1e-5·max of
+    its plain version; the fold launches as the plan says."""
+    w = torch.randn((n, m), generator=gen, device="cuda")
+    wq = quantize_weights(w, QuantSpec(bits=q, group_size=gs))
+    x = torch.randn((b, n), generator=gen, device="cuda")
+    bn, _ = ops._pick_blocks(n, m, None, None, gs if gs > 0 else None)
+    _, splits = kernel.split_plan(-(-n // bn), m, b,
+                                  kernel._sms(torch.device("cuda")))
+    l0 = dict(qkernel.LAUNCHES)
+    got = qops.quant_matmul(x, wq)
+    want = qops.quant_matmul(x, wq, impl="reference")
+    torch.cuda.synchronize()
+    assert qkernel.LAUNCHES["quant_matmul"] == l0["quant_matmul"] + 1
+    assert qkernel.LAUNCHES["quant_matmul_fold"] == \
+        l0["quant_matmul_fold"] + int(splits > 1)
+    tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all())
