@@ -53,7 +53,31 @@ Phases, each printing one JSON line:
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
      its prefill logits within 5 % of max|logit| of the plain versions';
-  9. the kernels line, then the card's name and power limit, then the
+  9. kernels: B3 over a stack of experts (`gemv_f_experts`, one launch
+     per stack) at qwen2-moe-a2.7b's shapes (64 experts of 2048→1408 and
+     1408→2048, q4, 8 capacity rows), with every expert full and with the
+     row counts of a decode step's routing (16 (token, expert) pairs of 4
+     lanes), a ragged M, one expert, an empty expert beside a full one:
+     rtol 1e-5 / atol 1e-5·max|plain| against its plain version; timed
+     beside the plain version, its bound (full capacity, and the routed
+     experts' bytes) and a torch.bmm of a bf16 stack of the same shape;
+ 10. slice, qwen2-moe-a2.7b at full width (24 layers, 64 experts, q4;
+     random weights from a seed, drawn and quantized one leaf at a time
+     after llama2-7b's weights are freed), act_bits=None: the same 4
+     requests through B3, the expert stacks through its stacked launch
+     (72 a forward pass, no per-expert launch); prefill logits within 5 %
+     of max|logit| of the same model on the plain versions, and the count
+     of (token, layer) top-k expert sets that differ between the two runs;
+     if router flips alone break the 5 % rule (the plain versions on the
+     kernel run's expert choices within 5 %), every stacked call of a
+     replay is held against its plain version instead;
+ 11. slice, qwen2-moe-a2.7b, act_bits=4: B2 on q/k/v and the shared
+     up/gate, B1 on wo, the shared down and lm_head, the stacked B3 on the
+     experts; every stacked call of a replay held against its plain
+     version on the path's own inputs and every B1 and B2 call bitwise,
+     the prefill logits reported; no copy of the groups' weights;
+ 12. profile: `profile_decode` on the act_bits=None MoE slice;
+ 13. the kernels line, then the card's name and power limit, then the
      result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
@@ -84,6 +108,9 @@ REPLACES = {
     "gemv_f": "src/repro/kernels/bitplane_gemv/kernel.py:84",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:72",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:45",
+    "gemv_f_experts": "src/repro/kernels/bitplane_gemv/kernel.py:84 "
+                      "gemv_f_pallas under jax.vmap at "
+                      "src/repro/models/moe.py:45",
 }
 SOURCES = {
     "gemv_bs": "src/repro_torch/csrc/bitplane_gemv.cu",
@@ -91,13 +118,20 @@ SOURCES = {
     "gemv_f": "src/repro_torch/csrc/bitplane_gemv.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
+    "gemv_f_experts": "src/repro_torch/csrc/bitplane_gemv.cu",
 }
 CONTEXT = 4096             # llama2-7b's published context (KV-cache slots)
+MOE_ARCH = "qwen2-moe-a2.7b"
 LOGIT_RTOL = 0.05          # of max|logit|, for paths that are not bitwise
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - START}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -939,6 +973,358 @@ def phase_baseline_slice(cfg, prompts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: B3 over a stack of experts against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, E, R, n, m, q, counts, calls per decode layer). The decode path
+# gives each stack the row counts of its routing: 4 lanes' top-4 picks,
+# 16 (token, expert) pairs, into 8 capacity rows an expert ("routed"); the
+# full-capacity rows read every expert's planes
+EXPERT_SHAPES = [
+    ("up/gate 2048→1408, routed", 64, 8, 2048, 1408, 4, "routed", 2),
+    ("down 1408→2048, routed", 64, 8, 1408, 2048, 4, "routed", 1),
+    ("up/gate 2048→1408, full", 64, 8, 2048, 1408, 4, None, 0),
+    ("down 1408→2048, full", 64, 8, 1408, 2048, 4, None, 0),
+    ("ragged M 300→90", 5, 6, 300, 90, 3, None, 0),
+    ("one expert 2048→1408", 1, 8, 2048, 1408, 4, None, 0),
+    ("empty and full experts 2048→1408", 4, 8, 2048, 1408, 4,
+     [0, 8, 3, 0], 0),
+]
+
+
+def _expert_stack(e, n, m, q, gen):
+    import torch
+    from repro_torch.serve.quantize import _quantize_leaf
+    return _quantize_leaf(torch.randn((e, n, m), generator=gen,
+                                      device="cuda"), q)
+
+
+def _routed_counts(e, gen, lanes=B, k=4):
+    """Rows per expert of one decode step: `lanes` tokens, each routed to
+    k distinct experts."""
+    import torch
+    picks = torch.stack([torch.randperm(e, generator=gen, device="cuda")[:k]
+                         for _ in range(lanes)])
+    return torch.bincount(picks.reshape(-1), minlength=e).to(torch.int32)
+
+
+def phase_expert_kernels() -> list:
+    import torch
+    from repro_torch.kernels.bitplane_gemv import kernel, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, e, r, n, m, q, spec, count in EXPERT_SHAPES:
+        bw = _expert_stack(e, n, m, q, gen)
+        counts = (None if spec is None else _routed_counts(e, gen)
+                  if spec == "routed" else
+                  torch.tensor(spec, dtype=torch.int32, device="cuda"))
+        x = torch.randn((e, r, n), generator=gen, device="cuda")
+        live_rows = r * e
+        if counts is not None:      # rows past a count are zero, as routed
+            live = torch.arange(r, device="cuda") < counts[:, None]
+            x = torch.where(live[..., None], x, 0.0)
+            live_rows = int(counts.clamp(max=r).sum())
+        bn, _ = ops._pick_blocks(n, m, None, None, None)
+        a = ops._pad_axis(x, bn, 2).contiguous()
+        scale_t = bw.scale.expand(e, a.shape[2] // bn, m)
+        kw = dict(q=q, zero=bw.zero, bn=bn)
+        got = kernel.gemv_f_experts(a, bw.planes, scale_t, counts, **kw)
+        want = ref.gemv_f_experts_ref(a, bw.planes, scale_t, counts, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = B3_RTOL * want.abs() + B3_RTOL * float(want.abs().max())
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"gemv_f_experts {name}: max|Δ| {err} "
+                                 f"outside rtol/atol {B3_RTOL}")
+        if counts is not None and any(
+                bool(got[i, c:].any()) for i, c in
+                enumerate(counts.clamp(max=r).tolist())):
+            raise AssertionError(f"gemv_f_experts {name}: rows past a "
+                                 f"count are not zero")
+        copies = [bw] + [_expert_stack(e, n, m, q, gen) for _ in
+                         range(copies_for(nbytes(bw.planes)) - 1)]
+        ms = graph_ms([lambda c=c: kernel.gemv_f_experts(
+            a, c.planes, scale_t, counts, **kw) for c in copies], 20)
+        del copies
+        plain = eager_ms(lambda: ref.gemv_f_experts_ref(
+            a, bw.planes, scale_t, counts, **kw), reps=1)
+        # full capacity: every expert's planes, scales and rows; routed:
+        # what this run's counts need (the planes and scales of experts
+        # with rows, their live rows); the whole output is written
+        busy = (e if counts is None else int((counts > 0).sum()))
+        per_expert = nbytes(bw.planes[0], bw.scale[0])
+        t_full, by_full = bound(nbytes(x, bw.planes, bw.scale), nbytes(got),
+                                2.0 * e * r * n * m, "float32")
+        t_bound, by = bound(busy * per_expert + live_rows * n * 4,
+                            nbytes(got), 2.0 * live_rows * n * m,
+                            "float32")
+        wlib = [torch.randn((e, n, m), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+                for _ in range(copies_for(e * n * m * 2))]
+        xb = x.to(torch.bfloat16)
+        lib_ms = graph_ms([lambda w=w: torch.bmm(xb, w) for w in wlib], 20)
+        del wlib
+        plan = kernel.split_plan(a.shape[2] // bn, m, r, sms, experts=e)
+        rows.append(dict(
+            shape=name, experts=e, rows=r, n=n, m=m, q=q,
+            experts_with_rows=busy, live_rows=live_rows, count=count,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
+            bound_by=by, full_capacity_bound_ms=t_full,
+            full_capacity_bound_by=by_full,
+            plane_bound_ms=busy * nbytes(bw.planes[0]) / HBM_BYTES_S * 1e3,
+            library_ms=lib_ms, tiles_per_block=plan[0], splits=plan[1]))
+        del bw, x, a
+    for row in rows:
+        emit({"phase": "kernel_check", "kernel": "gemv_f_experts", **row})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: qwen2-moe-a2.7b at full width
+# ---------------------------------------------------------------------------
+
+def phase_moe_model():
+    """The MoE configuration's serving parameters, drawn and quantized one
+    leaf (and one layer of a stacked leaf) at a time: the float model
+    (60.6 GB) never lies on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_defs
+    from repro_torch.serve.quantize import init_quantized_params
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qparams = init_quantized_params(param_defs(cfg), cfg.weight_bits, gen,
+                                    "cuda")
+    torch.cuda.synchronize()
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                            device="cuda")
+    emit({"phase": "model", "config": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
+          "shared_d_ff": cfg.moe.num_shared * cfg.moe.d_expert,
+          "vocab": cfg.vocab_size, "weight_bits": cfg.weight_bits,
+          "dtype": cfg.dtype, "depth_cut": None,
+          "setup_seconds": time.perf_counter() - t0,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return cfg, qparams, prompts
+
+
+class RouteLog:
+    """Records each MoE layer's top-k expert sets (`moe._route`) while
+    installed: `with RouteLog() as log: ...`, then `log.sets`."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.real, self.sets = moe._route, []
+
+        def recorded(*args, **kw):
+            out = self.real(*args, **kw)
+            self.sets.append(torch.sort(out[3], dim=-1).values)
+            return out
+        moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
+class ForcedRoutes:
+    """While installed, the i-th MoE layer call routes its tokens to the
+    experts of `sets[i]` (another run's `RouteLog.sets`), gated by its own
+    router probabilities over them: the same run with the other run's
+    expert choices."""
+
+    def __init__(self, sets):
+        self.sets = sets
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.real, pending = moe._route, iter(self.sets)
+
+        def forced(x, w_router, cfg):
+            _, _, aux, _ = self.real(x, w_router, cfg)
+            idx = next(pending)
+            probs = torch.softmax(moe.dense(x, w_router).to(torch.float32),
+                                  dim=-1)
+            mask = torch.zeros_like(probs).scatter_(-1, idx, 1.0)
+            gates = probs * mask
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return gates, mask, aux, idx
+        moe._route = forced
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
+def held_on_path(eng, prompts) -> dict:
+    """Replay the requests with every stacked B3 call held against its
+    plain version on the same inputs (rtol/atol 1e-5), and every B1 and B2
+    call bitwise (after the counted run)."""
+    import torch
+    from repro_torch.kernels.bitplane_gemv import kernel, program, ref
+    held = {"gemv_f_experts": [], "gemv_bs": [], "program_gemv": []}
+    real = (kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv)
+
+    def experts(a, planes, scale_tiles, counts=None, **kw):
+        got = real[0](a, planes, scale_tiles, counts, **kw)
+        want = ref.gemv_f_experts_ref(a, planes, scale_tiles, counts, **kw)
+        err = float((got - want).abs().max())
+        tol = B3_RTOL * want.abs() + B3_RTOL * float(want.abs().max())
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"gemv_f_experts on the path: max|Δ| {err} "
+                                 f"outside rtol/atol {B3_RTOL}")
+        held["gemv_f_experts"].append(err)
+        return got
+
+    def bitwise(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} on the path: kernel != plain")
+        held[name].append(0.0)
+        return got
+
+    def leaf(*args, **kw):
+        return bitwise("gemv_bs", real[1](*args, **kw),
+                       ref.gemv_bs_ref(*args, **kw))
+
+    def group(table, codes, **kw):
+        return bitwise("program_gemv", real[2](table, codes, **kw),
+                       ref.group_gemv_ref(codes, table.planes, table.scales,
+                                          table.members, table.cols, **kw))
+
+    kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = (
+        experts, leaf, group)
+    try:
+        eng.generate(prompts, max_new=NEW)
+    finally:
+        kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = real
+    return {k: {"calls": len(v), "max_abs_err": max(v, default=None)}
+            for k, v in held.items()}
+
+
+def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
+    """Serve the requests, counts zeroed just before and read just after;
+    then the checks of the module docstring's phase 10 or 11."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    what = f"{cfg.name} act_bits={act_bits}"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
+                      batch_slots=B, quantized=True, act_bits=act_bits,
+                      device="cuda")
+    eng.generate(prompts[:, :4], max_new=2)       # pack B2 groups, warm up
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    resident = resident_gb(eng)
+    held_no_copy(resident, what)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, max_new=NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # a forward pass: 3 stacks a layer; attention's 4 linears, the shared
+    # FFN's 3 and lm_head through B1/B2 or B3
+    layers, passes = cfg.num_layers, NEW
+    want = {"gemv_f_experts": 3 * layers * passes}
+    if act_bits:
+        want |= {"gemv_f": 0, "program_gemv": 2 * layers * passes,
+                 "gemv_bs": (2 * layers + 1) * passes}
+    else:
+        want |= {"gemv_f": (7 * layers + 1) * passes, "gemv_bs": 0,
+                 "program_gemv": 0}
+    for k, v in want.items():
+        if seen["launches"][k] != v:
+            raise AssertionError(f"{what}: {k} launched "
+                                 f"{seen['launches'][k]} times, not {v} "
+                                 f"({seen})")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"{what}: a plain version ran on the card "
+                             f"({seen})")
+    if tuple(toks.shape) != (B, PROMPT + NEW) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
+    if not torch.equal(toks[:, :PROMPT], prompts):
+        raise AssertionError(f"{what}: prompt tokens not echoed")
+
+    with torch.no_grad():
+        with RouteLog() as k_log:
+            got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
+                                       eng.max_seq)
+        ref_eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
+                              batch_slots=B, quantized=True,
+                              act_bits=act_bits, impl="reference",
+                              device="cuda")
+        with RouteLog() as p_log:
+            want_l, _ = ref_eng.model.prefill(ref_eng.params,
+                                              {"tokens": prompts},
+                                              eng.max_seq)
+        # the plain versions on the kernel run's expert choices
+        with ForcedRoutes(k_log.sets):
+            same_l, _ = ref_eng.model.prefill(ref_eng.params,
+                                              {"tokens": prompts},
+                                              eng.max_seq)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    err, scale = float((got - want_l).abs().max()), float(want_l.abs().max())
+    err_same = float((got - same_l).abs().max())
+    flips = sum(int((a != b).any(-1).sum())
+                for a, b in zip(k_log.sets, p_log.sets))
+    out = {"phase": f"slice_qwen2_moe_act_bits_{act_bits}",
+           "tokens_shape": list(toks.shape), "seconds": dt,
+           "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
+           "setup_seconds": setup, "peak_mem_gb": peak, **seen,
+           "resident": resident,
+           "prefill_logits_max_abs_err_vs_plain": err,
+           "max_abs_logit": scale,
+           "routed_token_layers": sum(int(a.shape[0] * a.shape[1])
+                                      for a in k_log.sets),
+           "expert_sets_differing_vs_plain": flips,
+           "prefill_logits_max_abs_err_vs_plain_same_experts": err_same}
+    # float activations: the logits within 5 % of max|logit| of the plain
+    # versions'; should router flips alone break that (the plain versions
+    # on the kernel run's expert choices within 5 %), every stacked call
+    # is held against its plain version on the path instead. At act_bits=4
+    # the logits are chaotic (PERF.md §6): reported, and every stacked
+    # call held on the path, every B1 and B2 call bitwise.
+    if not act_bits and err_same > LOGIT_RTOL * scale:
+        raise AssertionError(f"{what}: logits differ from the plain "
+                             f"versions' on the same experts (max|Δ| "
+                             f"{err_same}, max|logit| {scale})")
+    if act_bits or err > LOGIT_RTOL * scale:
+        if not act_bits and flips == 0:
+            raise AssertionError(f"{what}: logits differ from the plain "
+                                 f"versions' (max|Δ| {err}, max|logit| "
+                                 f"{scale}) with the same experts routed")
+        out["held_on_path"] = held_on_path(eng, prompts)
+    emit(out)
+    return out
+
+
+def phase_moe_profile(cfg, qparams) -> dict:
+    import torch
+    from repro_torch.launch.profile_decode import profile
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    run = profile(cfg, qparams, act_bits=None, batch=B, prompt_len=PROMPT,
+                  tokens=NEW, gen=gen)
+    if not run["top_kernels"] or run["device_kernel_s"] <= 0:
+        raise AssertionError(f"profile of {cfg.name} saw no device time")
+    emit(run)
+    return run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -990,6 +1376,13 @@ def main() -> int:
     del qparams                       # the baseline needs the float weights
     torch.cuda.empty_cache()
     sb = phase_baseline_slice(cfg, prompts)
+    torch.cuda.empty_cache()          # llama2-7b's weights are all freed
+
+    rows["gemv_f_experts"] = phase_expert_kernels()
+    moe_cfg, moe_params, moe_prompts = phase_moe_model()
+    smf = phase_moe_slice(moe_cfg, moe_params, moe_prompts, None)
+    phase_moe_slice(moe_cfg, moe_params, moe_prompts, 4)
+    phase_moe_profile(moe_cfg, moe_params)
 
     launches = {**s4["launches"]}
     launches["gemv_f"] = sf["launches"]["gemv_f"]
@@ -997,11 +1390,14 @@ def main() -> int:
     launches["decode_attention"] = sa["launches"]["decode_attention"]
     launches["quant_matmul"] = sb["launches"]["quant_matmul"]
     launches["quant_matmul_fold"] = sb["launches"]["quant_matmul_fold"]
+    for k in ("gemv_f_experts", "gemv_f_experts_fold"):
+        launches[k] = smf["launches"][k]
     # per kernel, its shapes summed as one decode layer (plus lm_head) calls
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the
     # names PERF.md's kernel table uses, `plane_bound_ms` (bit-plane
     # kernels only) is the planes alone at the memory rate, and
-    # `fold_launches` (B1, B2, B3, B5) the second launches of split calls
+    # `fold_launches` (B1, B2, B3, B5, the stacked B3) the second launches
+    # of split calls; the stacked B3's shapes are a MoE layer's
     kernels = []
     for kname, rs in rows.items():
         keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the paper's llama2-7b for now (the
+"""Architecture registry of the port: the paper's llama2-7b, the dense
+qwen2-7b and starcoder2-3b, and the mixture-of-experts qwen2-moe-a2.7b (the
 JAX package's other architectures are still to be ported, ROADMAP A7), and
 reduced ("tiny") variants for CPU tests.
 """
@@ -11,6 +12,9 @@ from ..models.config import ModelConfig
 
 # arch id -> (module, long_500k runnable?) — the JAX package's registry
 ARCHS = {
+    "qwen2-moe-a2.7b": ("qwen2_moe_a2_7b", False),
+    "starcoder2-3b": ("starcoder2_3b", False),
+    "qwen2-7b": ("qwen2_7b", False),
     "llama2-7b": ("llama2_7b", False),
 }
 
@@ -29,11 +33,17 @@ def long_ok(arch: str) -> bool:
 
 def tiny_config(arch: str) -> ModelConfig:
     """Same family and topology at tiny dims — the JAX package's
-    `tiny_config` for the dense attention archs the port has."""
+    `tiny_config` for the attention archs the port has (MoE: 8 experts,
+    top-2, d_expert 32, a fused shared FFN 64 wide where the config has
+    shared experts)."""
     cfg = get_config(arch)
     attn = dataclasses.replace(
         cfg.attn, num_heads=4, num_kv_heads=min(cfg.attn.num_kv_heads, 2),
         head_dim=16, sliding_window=8 if cfg.attn.sliding_window else None)
+    moe = cfg.moe and dataclasses.replace(
+        cfg.moe, num_experts=8, top_k=2, d_expert=32,
+        shared_d_ff=64 if (cfg.moe.num_shared or cfg.moe.shared_d_ff)
+        else None)
     return dataclasses.replace(
         cfg, name=f"tiny-{cfg.name}", num_layers=2 * len(cfg.pattern),
-        d_model=64, d_ff=128, vocab_size=256, attn=attn)
+        d_model=64, d_ff=128, vocab_size=256, attn=attn, moe=moe)

@@ -23,12 +23,18 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device=None):
     """Nested dict of numpy arrays → the same tree of tensors on `device`
-    (the GPU unless the caller asks for the CPU)."""
+    (the GPU unless the caller asks for the CPU). A node with `planes`,
+    `scale`, `zero`, `col_sum`, `n` and `spec` (a JAX `BitplaneWeights`
+    whose arrays are numpy, stacked over layers and experts or not)
+    becomes the port's `BitplaneWeights` (`bitplane_from_numpy`)."""
     device = resolve_device(device)
 
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
+        if hasattr(t, "planes"):
+            return bitplane_from_numpy(t.planes, t.scale, t.zero, t.col_sum,
+                                       t.n, t.spec, device)
         return _tensor(t, device)
 
     return walk(tree)
@@ -37,8 +43,9 @@ def params_from_numpy(tree, device=None):
 def bitplane_from_numpy(planes, scale, zero: int, col_sum, n: int, spec,
                         device=None) -> BitplaneWeights:
     """A JAX `BitplaneWeights`' fields → the port's: uint32 planes are
-    reinterpreted as int32 bit patterns; `spec` is anything with `bits`,
-    `symmetric` and `group_size`."""
+    reinterpreted as int32 bit patterns (leading layer and expert dims
+    kept); `spec` is anything with `bits`, `symmetric` and
+    `group_size`."""
     device = resolve_device(device)
     words = np.ascontiguousarray(np.asarray(planes, dtype=np.uint32))
     return BitplaneWeights(

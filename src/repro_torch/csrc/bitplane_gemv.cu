@@ -8,7 +8,10 @@
 //   (src/repro/kernels/bitplane_gemv/program.py): B1 over the members of a
 //   whole concurrency group (q/k/v, up/gate) in one launch.
 // B3 gemv_f       — replaces `gemv_f_pallas` / `_gemv_f_kernel`
-//   (kernel.py): float activations × packed weight planes.
+//   (kernel.py): float activations × packed weight planes; and, over a
+//   stack of experts in one launch (`experts_kernel`), the JAX package's
+//   `jax.vmap` of it over the routed experts (src/repro/models/moe.py,
+//   `_expert_mm`).
 //
 // Bound. At decode (B = 4 rows) B1 and B2 are bound by bytes: each call
 // must read the packed planes once, q·N·M/8 bytes (4 MiB for a 4096×4096
@@ -16,7 +19,11 @@
 // 4096→32000 lm_head), and little else. B3's 2·B·N·M f32 multiply-adds on
 // CUDA cores (67 TFLOP/s) take longer than its bytes. Either way the time
 // goes to memory round trips unless many loads are in flight, and then to
-// unpacking bits and to multiply-adds.
+// unpacking bits and to multiply-adds. B3 over an expert stack (qwen2-moe:
+// 64 experts, 8 capacity rows each, 2048→1408 and 1408→2048, q4) has
+// 2·8·64·2048·1408 = 2.95 GFLOP at 67 TFLOP/s (0.044 ms) against 92 MB of
+// planes (0.028 ms) at full capacity; at decode only the experts that
+// received tokens (≤ 16 of 64 at 4 lanes, top-4) need their planes read.
 //
 // Design.
 //  * Members. A launch works on a table of members, one weight matrix
@@ -64,6 +71,13 @@
 //    z_a·col_sum − z_w·Σa + bn·z_a·z_w, padding included (a padded row has
 //    a = z_a, w = 0). A member of lower q than the launch's Q reads only
 //    its own planes.
+//  * Experts. `experts_kernel` runs the same block body over a stack of
+//    E matrices of one shape: grid.z walks expert × group of 4 rows, and
+//    a block offsets its member's activations, planes, scales and output
+//    by its expert's strides (no table, no copy of the planes). Given
+//    counts (device memory), expert e's rows at and past counts[e] are
+//    taken as zero: they are not loaded, their outputs are written as
+//    zero, and a block whose 4 rows are all past it reads no planes.
 //  * Fold. With one split (no workspace given) a block owns every tile of
 //    its strip and writes the output: B3 the sum of its warps' partials in
 //    warp order, B1/B2 the epilogue out = fma(f32(corr_t), scale_t, out) in
@@ -177,22 +191,23 @@ __device__ __forceinline__ uint32_t geti(const V& v, int i) {
 
 // One block's work on member mb: strip `strip` of its 128-column strips,
 // tiles [t_begin, t_begin + nt) with t_begin = split·tiles_per_block,
-// batch rows 4·blockIdx.z + [0, 4). q ≤ Q: the member's own planes. ws:
-// null when the block owns every tile of its strip (one split) and writes
-// the output, else B3 (splits, B, ws_cols) f32 and B1/B2 (tiles, B,
-// ws_cols) int32.
+// batch rows row0 + [0, 4) of B. Rows at and past `live_rows` (≤ B) are
+// taken as zero: not loaded, and with row0 ≥ live_rows no plane is read.
+// q ≤ Q: the member's own planes. ws: null when the block owns every tile
+// of its strip (one split) and writes the output, else B3 (splits, B,
+// ws_cols) f32 and B1/B2 (tiles, B, ws_cols) int32.
 template <int Q, bool kInt>
 __device__ __forceinline__ void gemv_block(const Member& mb, int q,
-                                           int strip, int split, int B,
-                                           void* ws, int ws_cols,
-                                           int tiles_per_block, Smem& sm) {
+                                           int strip, int split, int row0,
+                                           int B, int live_rows, void* ws,
+                                           int ws_cols, int tiles_per_block,
+                                           Smem& sm) {
   constexpr int U = unit_words(Q);
   static_assert(U <= kMaxUnit, "unit too wide for the staging buffer");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int M = mb.m;
   const int m0 = strip * kStrip;                    // the strip's column 0
   const int m = m0 + lane * kCols;
-  const int row0 = blockIdx.z * kRows;
   const int wpt = mb.bn >> 5;                       // words per tile
   const int upt = (wpt + U - 1) / U;                // items per tile
   const int t_begin = split * tiles_per_block;
@@ -214,7 +229,8 @@ __device__ __forceinline__ void gemv_block(const Member& mb, int q,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) fpart[r][c] = 0.f;
 
-  for (int it = warp; it < nt * upt; it += kWarps) {
+  const int items = row0 < live_rows ? nt * upt : 0;  // else rows all 0
+  for (int it = warp; it < items; it += kWarps) {
     const int tl = it / upt;
     const int t = t_begin + tl;
     const int j0 = (it - tl * upt) * U;             // first word in the tile
@@ -250,7 +266,7 @@ __device__ __forceinline__ void gemv_block(const Member& mb, int q,
       for (int r = 0; r < kRows; ++r) {
         av[u][r] = 0;
         const int row = row0 + r;
-        if (u < live && row < B) {
+        if (u < live && row < live_rows) {
           const long long at = row * mb.a_row + t * mb.a_tile
                                + (j0 + u) * 32 + lane;
           if constexpr (kInt)
@@ -410,8 +426,34 @@ __global__ void __launch_bounds__(kThreads)
 leaf_kernel(const Member mb, void* __restrict__ ws, int B,
             int tiles_per_block) {
   __shared__ Smem sm;
-  gemv_block<Q, kInt>(mb, Q, blockIdx.x, blockIdx.y, B, ws, mb.m,
-                      tiles_per_block, sm);
+  gemv_block<Q, kInt>(mb, Q, blockIdx.x, blockIdx.y, blockIdx.z * kRows, B,
+                      B, ws, mb.m, tiles_per_block, sm);
+}
+
+// B3 over a stack of experts of one shape: grid.z = expert × row group;
+// mb describes expert 0, and expert e's activations, planes, scales and
+// output lie a_expert, plane_expert, scale_expert and R·M elements
+// further (its workspace slice splits·R·M). counts: null, or (E,) rows
+// with data per expert.
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+experts_kernel(const Member mb, long long a_expert, long long plane_expert,
+               long long scale_expert, const int* __restrict__ counts,
+               float* __restrict__ ws, int R, int row_groups,
+               int tiles_per_block, int splits) {
+  __shared__ Smem sm;
+  const int e = blockIdx.z / row_groups;
+  const int row0 = (blockIdx.z - e * row_groups) * kRows;
+  const long long rm = static_cast<long long>(R) * mb.m;
+  Member me = mb;
+  me.a = static_cast<const float*>(mb.a) + e * a_expert;
+  me.planes = mb.planes + e * plane_expert;
+  me.scales = mb.scales + e * scale_expert;
+  me.out = mb.out + e * rm;
+  const int live = counts == nullptr ? R : max(0, min(counts[e], R));
+  gemv_block<Q, false>(me, Q, blockIdx.x, blockIdx.y, row0, R, live,
+                       ws == nullptr ? nullptr : ws + e * splits * rm,
+                       mb.m, tiles_per_block, sm);
 }
 
 // The member whose strips hold grid column `strip` into dst (shared
@@ -456,8 +498,9 @@ group_kernel(const Table tab, const Member* __restrict__ gtab, int n,
   __shared__ Member mb;
   select_member(tab, gtab, n, blockIdx.x, mb);
   __syncthreads();
-  gemv_block<Q, true>(mb, mb.q, blockIdx.x - mb.strip0, blockIdx.y, B, ws,
-                      ws_cols, tiles_per_block, sm);
+  gemv_block<Q, true>(mb, mb.q, blockIdx.x - mb.strip0, blockIdx.y,
+                      blockIdx.z * kRows, B, B, ws, ws_cols, tiles_per_block,
+                      sm);
 }
 
 // B1's epilogue over the workspace: out = fma(f32(corr_t), scale_t, out)
@@ -498,14 +541,16 @@ fold_group_kernel(const Table tab, const Member* __restrict__ gtab, int n,
   }
 }
 
-// B3's fold: out = Σ_s part_s in split order. part (splits, B, M) f32.
+// B3's fold: out = Σ_s part_s in split order. part (E, splits, B, M)
+// f32 (E = 1 for one matrix), out (E, B, M); BM = B·M, total = E·B·M.
 __global__ void fold_float_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, long BM,
-                                  int splits) {
+                                  long total, int splits) {
   const long o = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (o >= BM) return;
+  if (o >= total) return;
+  const long e = o / BM, i = o - e * BM;
   float y = 0.f;
-  for (int s = 0; s < splits; ++s) y += part[s * BM + o];
+  for (int s = 0; s < splits; ++s) y += part[(e * splits + s) * BM + i];
   out[o] = y;
 }
 
@@ -513,17 +558,21 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kInt>
-int launch(const void* a, const void* planes, const void* scales, void* out,
-           void* ws, int B, int n_pad, int n_words, int M, int q, int bn,
-           int mask, int z_a, int zero, int tiles_per_block, int splits,
-           cudaStream_t stream) {
+// The checks of a one-matrix launch and its split; true if valid.
+bool plan_ok(int q, int bn, int n_pad, int tiles_per_block, int splits,
+             const void* ws) {
   const int tiles = bn > 0 ? n_pad / bn : 0;
-  if (q < 1 || q > 8 || bn % 32 || bn <= 0 || n_pad % bn
-      || tiles_per_block < 1 || tiles_per_block > kMaxTiles
-      || splits != (tiles + tiles_per_block - 1) / tiles_per_block
-      || (splits > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  return !(q < 1 || q > 8 || bn % 32 || bn <= 0 || n_pad % bn
+           || tiles_per_block < 1 || tiles_per_block > kMaxTiles
+           || splits != (tiles + tiles_per_block - 1) / tiles_per_block
+           || (splits > 1 && ws == nullptr));
+}
+
+// The member of one (B, n_pad) × (q, n_words, M) matrix, its tile scales
+// (n_pad/bn, M) a scale_stride apart.
+Member leaf_member(const void* a, const void* planes, const void* scales,
+                   void* out, int n_pad, int n_words, int M, int q, int bn,
+                   int mask, int z_a, int zero, int scale_stride) {
   Member mb{};
   mb.a = a;
   mb.planes = static_cast<const int32_t*>(planes);
@@ -534,17 +583,31 @@ int launch(const void* a, const void* planes, const void* scales, void* out,
   mb.plane_stride = static_cast<long long>(n_words) * M;
   mb.tile_stride = static_cast<long long>(bn / 32) * M;
   mb.word_stride = M;
-  mb.scale_stride = M;
+  mb.scale_stride = scale_stride;
   mb.out_row = M;
   mb.m = M;
   mb.words = n_words;
-  mb.tiles = tiles;
+  mb.tiles = n_pad / bn;
   mb.bn = bn;
   mb.q = q;
   mb.mask = mask;
   mb.z_a = z_a;
   mb.zero = zero;
-  mb.vec = M % kCols == 0 && aligned16(planes) && aligned16(scales);
+  mb.vec = M % kCols == 0 && scale_stride % kCols == 0 && aligned16(planes)
+           && aligned16(scales);
+  return mb;
+}
+
+template <bool kInt>
+int launch(const void* a, const void* planes, const void* scales, void* out,
+           void* ws, int B, int n_pad, int n_words, int M, int q, int bn,
+           int mask, int z_a, int zero, int tiles_per_block, int splits,
+           cudaStream_t stream) {
+  if (!plan_ok(q, bn, n_pad, tiles_per_block, splits, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Member mb = leaf_member(a, planes, scales, out, n_pad, n_words, M, q,
+                                bn, mask, z_a, zero, M);
+  const int tiles = mb.tiles;
   const dim3 grid((M + kStrip - 1) / kStrip, splits, (B + kRows - 1) / kRows);
 #define LEAF_CASE(QQ)                                                       \
   case QQ:                                                                  \
@@ -565,7 +628,7 @@ int launch(const void* a, const void* planes, const void* scales, void* out,
         static_cast<const int*>(ws), mb.scales, mb.out, B, M, tiles);
   else
     fold_float_kernel<<<blocks, 256, 0, stream>>>(
-        static_cast<const float*>(ws), mb.out, bm, splits);
+        static_cast<const float*>(ws), mb.out, bm, bm, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -597,6 +660,52 @@ extern "C" int gemv_f_launch(const void* a, const void* planes,
   return launch<false>(a, planes, scales, out, ws, B, n_pad, n_words, M, q,
                        bn, 0, 0, zero, tiles_per_block, splits,
                        static_cast<cudaStream_t>(stream));
+}
+
+// B3 over E experts: a (E, R, n_pad) f32 padded with 0; planes (E, q,
+// n_words, M) int32; scales: expert e's tile t at scales[e·scale_expert +
+// t·scale_tile] (scale_tile 0: per-channel scales read for every tile);
+// counts null or (E,) int32 → out (E, R, M) f32. ws: (E, splits, R, M)
+// f32, or null with one split.
+extern "C" int gemv_f_experts_launch(const void* a, const void* planes,
+                                     const void* scales, void* out,
+                                     void* ws, const void* counts, int E,
+                                     int R, int n_pad, int n_words, int M,
+                                     int q, int zero, int bn,
+                                     int scale_expert, int scale_tile,
+                                     int tiles_per_block, int splits,
+                                     void* stream) {
+  const int row_groups = (R + kRows - 1) / kRows;
+  if (!plan_ok(q, bn, n_pad, tiles_per_block, splits, ws) || E < 1
+      || R < 1 || static_cast<long>(E) * row_groups > 65535
+      || scale_expert < 0 || scale_tile < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Member mb = leaf_member(a, planes, scales, out, n_pad, n_words, M, q, bn,
+                          0, 0, zero, scale_tile);
+  mb.vec = mb.vec && scale_expert % kCols == 0;
+  const long long a_expert = static_cast<long long>(R) * n_pad;
+  const long long plane_expert = static_cast<long long>(q) * n_words * M;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((M + kStrip - 1) / kStrip, splits, E * row_groups);
+  const int* cnt = static_cast<const int*>(counts);
+  float* wsf = splits > 1 ? static_cast<float*>(ws) : nullptr;
+#define EXPERTS_CASE(QQ)                                                    \
+  case QQ:                                                                  \
+    experts_kernel<QQ><<<grid, kThreads, 0, st>>>(                          \
+        mb, a_expert, plane_expert, scale_expert, cnt, wsf, R, row_groups,  \
+        tiles_per_block, splits);                                           \
+    break;
+  switch (q) {
+    EXPERTS_CASE(1) EXPERTS_CASE(2) EXPERTS_CASE(3) EXPERTS_CASE(4)
+    EXPERTS_CASE(5) EXPERTS_CASE(6) EXPERTS_CASE(7) EXPERTS_CASE(8)
+  }
+#undef EXPERTS_CASE
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || wsf == nullptr) return static_cast<int>(err);
+  const long rm = static_cast<long>(R) * M, total = rm * E;
+  fold_float_kernel<<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
+      wsf, static_cast<float*>(out), rm, total, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B2 over a group: the members in *tab (tab->n ≤ 8), or, when gtab is not

@@ -1,7 +1,9 @@
 """Wrappers of the per-leaf bit-plane GeMV CUDA kernels (`csrc/
 bitplane_gemv.cu`): B1 `gemv_bs` (integer activation codes) and B3
 `gemv_f` (float activations), the counterparts of the JAX package's
-`gemv_bs_pallas` and `gemv_f_pallas`; and the member table (`Member`,
+`gemv_bs_pallas` and `gemv_f_pallas`; B3 over a stack of experts in one
+launch (`gemv_f_experts`, where the JAX package vmaps `gemv_f_pallas`
+over the experts in `models/moe.py`); and the member table (`Member`,
 `Table`) through which B2 (`program.py`) launches the same block body over
 a group.
 
@@ -19,9 +21,10 @@ from .. import build
 from . import ref
 
 #: launches of each CUDA kernel (the plain versions count in ref.CALLS):
-#: `gemv_bs`/`gemv_f` one per call, `*_fold` the second launch of a call
-#: whose reduction is split over blocks
-LAUNCHES = {"gemv_bs": 0, "gemv_f": 0, "gemv_bs_fold": 0, "gemv_f_fold": 0}
+#: `gemv_bs`/`gemv_f`/`gemv_f_experts` one per call, `*_fold` the second
+#: launch of a call whose reduction is split over blocks
+LAUNCHES = {"gemv_bs": 0, "gemv_f": 0, "gemv_f_experts": 0,
+            "gemv_bs_fold": 0, "gemv_f_fold": 0, "gemv_f_experts_fold": 0}
 
 MAX_BN = 512   # bn the kernels take (16 words per reduction tile)
 MAX_BITS = 8
@@ -65,18 +68,20 @@ class Table(ctypes.Structure):
                 ("pad", ctypes.c_int)]
 
 
-def split_plan(tiles: int, m: int, b: int, sms: int) -> tuple:
+def split_plan(tiles: int, m: int, b: int, sms: int,
+               experts: int = 1) -> tuple:
     """(tiles_per_block, splits): how a launch splits the reduction tiles
     of every column strip over blocks. Enough splits that the grid reaches
     BLOCKS_PER_SM blocks on each of the card's `sms` SMs, unless there are
     fewer tiles than that; at most MAX_TILES_PER_BLOCK tiles a block;
     splits = ceil(tiles / tiles_per_block). With one split a block owns
     every tile and writes the output itself; with more, a second launch
-    folds a workspace."""
-    if min(tiles, m, b, sms) < 1:
+    folds a workspace. A stack of `experts` matrices counts every expert's
+    strips."""
+    if min(tiles, m, b, sms, experts) < 1:
         raise ValueError(f"split_plan: tiles={tiles}, m={m}, b={b}, "
-                         f"sms={sms} must be >= 1")
-    per_split = -(-m // STRIP) * -(-b // ROWS)
+                         f"sms={sms}, experts={experts} must be >= 1")
+    per_split = experts * -(-m // STRIP) * -(-b // ROWS)
     want = min(tiles, -(-BLOCKS_PER_SM * sms // per_split))
     tpb = min(tiles // want, MAX_TILES_PER_BLOCK)
     return tpb, -(-tiles // tpb)
@@ -103,8 +108,11 @@ def _sms(device: torch.device) -> int:
 
 
 def _check_inputs(what: str, a, planes, scale_tiles, a_dtype, *, q: int,
-                 bn: int, bits: tuple = ()) -> None:
-    """Device, dtype, shape and contiguity checks shared by the wrappers."""
+                 bn: int, bits: tuple = (),
+                 strided_scales: bool = False) -> None:
+    """Device, dtype, shape and contiguity checks shared by the wrappers.
+    `strided_scales`: the launch reads the scales through strides (the
+    stacked one), so they need a unit column stride only."""
     dev = a.device
     for name, t, dt in (("activations", a, a_dtype),
                         ("planes", planes, torch.int32),
@@ -114,7 +122,8 @@ def _check_inputs(what: str, a, planes, scale_tiles, a_dtype, *, q: int,
                              f"on {dev}")
         if t.dtype != dt:
             raise ValueError(f"{what}: {name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
+        if not (t.is_contiguous() or (name == "scales" and strided_scales
+                                      and t.stride(-1) == 1)):
             raise ValueError(f"{what}: {name} must be contiguous")
     if bn % 32 or not 32 <= bn <= MAX_BN:
         raise ValueError(f"{what}: bn={bn} must be a multiple of 32 in "
@@ -192,4 +201,59 @@ def gemv_f(a, planes, scale_tiles, *, q: int, zero: int,
         a.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
         out.data_ptr(), ws.data_ptr() if splits > 1 else None, b, n, words,
         m, q, zero, bn, tpb, splits, _stream()), "gemv_f")
+    return out
+
+
+def gemv_f_experts(a, planes, scale_tiles, counts=None, *, q: int,
+                   zero: int, bn: int) -> torch.Tensor:
+    """a (E, R, N) f32 padded to a multiple of bn with 0; planes (E, q, W,
+    M) int32 (each expert's leaf planes, W = ceil(n/32)); scale_tiles (E,
+    N/bn, M) f32 with unit column stride (a stride-0 view over the tiles of
+    per-channel scales is read as it is); counts (E,) int32 or None → (E,
+    R, M) f32, expert e's rows through expert e's planes, in ONE launch
+    over all experts' strips. Rows at and past counts[e] are taken as zero:
+    the kernel writes their outputs as zero, and skips a group of 4 rows
+    with none below counts[e] without reading the expert's planes."""
+    if not a.is_cuda:
+        return ref.gemv_f_experts_ref(a, planes, scale_tiles, counts, q=q,
+                                      zero=zero, bn=bn)
+    what = "gemv_f_experts"
+    if a.ndim != 3 or planes.ndim != 4 or scale_tiles.ndim != 3:
+        raise ValueError(f"{what}: activations {tuple(a.shape)}, planes "
+                         f"{tuple(planes.shape)}, scales "
+                         f"{tuple(scale_tiles.shape)} must be 3-, 4- and "
+                         f"3-dimensional")
+    e, r, n = a.shape
+    m = planes.shape[-1]
+    if planes.shape[0] != e or scale_tiles.shape[0] != e:
+        raise ValueError(f"{what}: {e} experts of activations, "
+                         f"{planes.shape[0]} of planes, "
+                         f"{scale_tiles.shape[0]} of scales")
+    _check_inputs(what, a, planes, scale_tiles, torch.float32, q=q, bn=bn,
+                  strided_scales=True)
+    _check_gemv(what, a[0], planes[0], scale_tiles[0], q, bn)
+    if counts is not None and (counts.device != a.device
+                               or counts.dtype != torch.int32
+                               or tuple(counts.shape) != (e,)
+                               or not counts.is_contiguous()):
+        raise ValueError(f"{what}: counts must be a contiguous ({e},) "
+                         f"int32 tensor on {a.device}")
+    if e * -(-r // ROWS) > 65535:
+        raise ValueError(f"{what}: {e} experts of {r} rows exceed the "
+                         f"grid's 65535 row groups")
+    tiles = n // bn
+    tpb, splits = split_plan(tiles, m, r, _sms(a.device), experts=e)
+    out = torch.empty((e, r, m), dtype=torch.float32, device=a.device)
+    # each expert's split partials (E, splits, R, M), folded in split order
+    ws = torch.empty((0,) if splits == 1 else (e, splits, r, m),
+                     dtype=torch.float32, device=a.device)
+    lib = build.library("bitplane_gemv")
+    LAUNCHES["gemv_f_experts"] += 1
+    LAUNCHES["gemv_f_experts_fold"] += int(splits > 1)
+    build.check(lib.gemv_f_experts_launch(
+        a.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
+        out.data_ptr(), ws.data_ptr() if splits > 1 else None,
+        None if counts is None else counts.data_ptr(), e, r, n,
+        planes.shape[2], m, q, zero, bn, scale_tiles.stride(0),
+        scale_tiles.stride(1), tpb, splits, _stream()), what)
     return out

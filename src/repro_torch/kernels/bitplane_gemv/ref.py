@@ -28,7 +28,7 @@ import torch
 
 #: calls of each plain version — a run on the card shows that the main path
 #: never reached them (only `chip_smoke.py`'s comparisons do)
-CALLS = {"gemv_bs": 0, "gemv_f": 0, "program_gemv": 0}
+CALLS = {"gemv_bs": 0, "gemv_f": 0, "program_gemv": 0, "gemv_f_experts": 0}
 
 
 def _unpack_codes(planes: torch.Tensor, q: int, dtype) -> torch.Tensor:
@@ -106,6 +106,12 @@ def gemv_f_ref(a, planes, scale_tiles, *, q: int, zero: int,
     """Same contract as `kernel.gemv_f`: a (B, N) f32 padded with 0;
     planes and scale_tiles as `gemv_bs_ref` → (B, M) f32."""
     CALLS["gemv_f"] += 1
+    return _gemv_f(a, planes, scale_tiles, q=q, zero=zero, bn=bn)
+
+
+def _gemv_f(a, planes, scale_tiles, *, q, zero, bn):
+    """`gemv_f_ref`'s arithmetic, uncounted (the stacked plain version
+    runs it per expert)."""
     b, n = a.shape
     m = planes.shape[-1]
     t = n // bn
@@ -118,6 +124,22 @@ def gemv_f_ref(a, planes, scale_tiles, *, q: int, zero: int,
         acc = part if acc is None else acc + part
     corr = acc - zero * a_t.sum(-1, keepdim=True)               # (t, B, M)
     return torch.einsum("tbm,tm->bm", corr, scale_tiles.to(torch.float32))
+
+
+def gemv_f_experts_ref(a, planes, scale_tiles, counts=None, *, q: int,
+                       zero: int, bn: int) -> torch.Tensor:
+    """Same contract as `kernel.gemv_f_experts`: a (E, R, N) f32 padded
+    with 0; planes (E, q, W, M) int32; scale_tiles (E, N/bn, M) f32 (any
+    strides); counts (E,) int32 or None → (E, R, M) f32: B3's plain
+    version per expert, expert e's rows at and past counts[e] taken as
+    zero. Counts one call."""
+    CALLS["gemv_f_experts"] += 1
+    if counts is not None:
+        live = torch.arange(a.shape[1], device=a.device) < counts[:, None]
+        a = torch.where(live[..., None], a, 0.0)
+    return torch.stack([_gemv_f(a[e], planes[e], scale_tiles[e], q=q,
+                                zero=zero, bn=bn)
+                        for e in range(a.shape[0])])
 
 
 def program_gemv_ref(codes_t, planes_t, scale_t, params_t, *, q_max: int,

@@ -36,6 +36,10 @@ SIGNATURES = {
         # a, planes, scales, out, ws, B, n_pad, n_words, M, q, zero, bn,
         # tiles_per_block, splits, stream
         "gemv_f_launch": [_P] * 5 + [_I] * 9 + [_P],
+        # a, planes, scales, out, ws, counts or null, E, R, n_pad,
+        # n_words, M, q, zero, bn, scale expert stride, scale tile stride,
+        # tiles_per_block, splits, stream
+        "gemv_f_experts_launch": [_P] * 6 + [_I] * 12 + [_P],
         # table (host), table (device) or null, n, strips, ws, ws_cols, B,
         # q_max, tiles_per_block, splits, stream
         "gemv_group_launch": [_P, _P, _I, _I, _P] + [_I] * 5 + [_P],

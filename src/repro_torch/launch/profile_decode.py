@@ -2,8 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --arch llama2-7b --act-bits 4 --batch 4 --prompt-len 16 --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --arch qwen2-moe-a2.7b
 
-Builds the model at full width with random weights from `--seed`, serves
+Builds the model at full width with random weights from `--seed` (drawn
+and quantized one leaf at a time, `init_quantized_params`), serves
 one warm-up request batch, then runs `ServeEngine.generate` once timed and
 once more under `torch.profiler` (`profile`, which `chip_smoke.py` also
 calls), and prints one JSON line: the wall time of the timed call, the
@@ -22,9 +25,8 @@ import torch
 
 from ..configs import ARCHS, get_config
 from ..models.model import param_defs
-from ..models.params import init_params
 from ..serve.engine import ServeEngine
-from ..serve.quantize import quantize_params
+from ..serve.quantize import init_quantized_params
 
 TOP = 12                  # kernels listed, by device time
 
@@ -94,8 +96,8 @@ def main(argv=None):
 
     cfg = get_config(args.arch)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    qparams = quantize_params(init_params(param_defs(cfg), gen, "cuda"),
-                              cfg.weight_bits)
+    qparams = init_quantized_params(param_defs(cfg), cfg.weight_bits, gen,
+                                    "cuda")
     print(json.dumps(profile(cfg, qparams, act_bits=args.act_bits,
                              batch=args.batch, prompt_len=args.prompt_len,
                              tokens=args.tokens, gen=gen)), flush=True)

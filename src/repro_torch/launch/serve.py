@@ -4,8 +4,13 @@ kernels (the paper's deployment mode). Port of the JAX package's
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --tiny --quantized --bits 2 --act-bits 4 --tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --quantized --tokens 16
 
-Runs on the GPU unless `--device cpu` is given.
+Runs on the GPU unless `--device cpu` is given. Quantized serving draws and
+quantizes the weights one leaf at a time (`init_quantized_params`), so a
+full-width model whose float weights would not fit beside its planes (the
+60.6 GB of qwen2-moe-a2.7b in float32) never lies on the device in float.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from ..device import resolve_device
 from ..models.model import param_defs
 from ..models.params import init_params
 from ..serve.engine import ServeEngine
-from ..serve.quantize import serving_bytes
+from ..serve.quantize import init_quantized_params, serving_bytes
 
 
 def main(argv=None):
@@ -44,7 +49,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, weight_bits=args.bits)
     defs = param_defs(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(defs, gen, device)
+    params = (init_quantized_params(defs, cfg.weight_bits, gen, device)
+              if args.quantized else init_params(defs, gen, device))
     print("serving bytes:", serving_bytes(defs, cfg.weight_bits))
 
     eng = ServeEngine(cfg, params,

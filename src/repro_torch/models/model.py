@@ -1,5 +1,6 @@
-"""Decoder LM (port of the JAX package's `models/model.py`) for dense
-attention stacks — the paper's llama2-7b and its kin.
+"""Decoder LM (port of the JAX package's `models/model.py`) for attention
+stacks with dense or mixture-of-experts FFNs — the paper's llama2-7b and
+its kin, and qwen2-moe.
 
 Parameters keep the JAX package's layout: each pattern stage's parameters
 are stacked along a leading "stack" axis, and so are its decode caches. The
@@ -9,8 +10,9 @@ layers. Three entry points:
   prefill(params, batch, max_seq)        → logits, cache
   decode_step(params, cache, tok, pos)   → logits, cache   [one token]
 
-MLA, MoE, SSM, hybrid and embedding-input configurations wait for the rest
-of the model zoo (ROADMAP A7) and raise `NotImplementedError`.
+MLA (with deepseek's leading dense-FFN layers), SSM, hybrid, tied-embedding
+and embedding-input configurations wait for the rest of the model zoo
+(ROADMAP A7) and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -20,19 +22,22 @@ from typing import Optional
 import torch
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import embed, ffn, lm_head, norm
 from .params import ParamDef, init_params  # noqa: F401  (re-exported)
 
 
 ATTN_IMPLS = ("sdpa", "kernel")
+#: MoE capacity factor of prefill and decode (the JAX package's)
+SERVE_CAPACITY = 2.0
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configuration kinds the port does not have yet."""
     what = [name for name, on in (
         ("MLA attention", cfg.mla is not None),
-        ("mixture-of-experts FFNs", cfg.moe is not None),
+        ("leading dense-FFN layers", bool(cfg.moe and cfg.moe.first_dense)),
         ("SSM stages", cfg.ssm is not None or "mamba" in cfg.pattern),
         ("hybrid shared blocks", cfg.num_shared_blocks > 0),
         ("embedding inputs", cfg.input_mode != "tokens"),
@@ -40,8 +45,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if what or cfg.attn is None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what) or 'no attention config'} not "
-            f"ported yet (ROADMAP A7); the port serves dense attention "
-            f"stacks")
+            f"ported yet (ROADMAP A7); the port serves attention stacks "
+            f"with dense or MoE FFNs")
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +118,34 @@ def _ffn_defs(cfg: ModelConfig, stack):
             "down_b": _stk(stack, (e,), ("embed",), init="zeros")}
 
 
-def _stage_defs(cfg: ModelConfig, stack):
+def _moe_defs(cfg: ModelConfig, stack):
+    e, mc = cfg.d_model, cfg.moe
+    ex, f = mc.num_experts, mc.d_expert
+    d = {
+        "router": _stk(stack, (e, ex), ("embed", "experts"),
+                       init="small_normal"),
+        "w_up": _stk(stack, (ex, e, f), ("experts", "embed", "expert_mlp"),
+                     fan_in_axes=(-2,)),
+        "w_gate": _stk(stack, (ex, e, f), ("experts", "embed", "expert_mlp"),
+                       fan_in_axes=(-2,)),
+        "w_down": _stk(stack, (ex, f, e), ("experts", "expert_mlp", "embed"),
+                       fan_in_axes=(-2,)),
+    }
+    shared = mc.shared_d_ff or (mc.num_shared * f if mc.num_shared else 0)
+    if shared:
+        d["shared_up"] = _stk(stack, (e, shared), ("embed", "mlp"))
+        d["shared_gate"] = _stk(stack, (e, shared), ("embed", "mlp"))
+        d["shared_down"] = _stk(stack, (shared, e), ("mlp", "embed"))
+    return d
+
+
+def _stage_defs(cfg: ModelConfig, stack, use_moe: bool):
     d = {"ln1": _norm_defs(cfg, stack), "attn": _attn_defs(cfg, stack),
-         "ln2": _norm_defs(cfg, stack), "ffn": _ffn_defs(cfg, stack)}
+         "ln2": _norm_defs(cfg, stack)}
+    if use_moe:
+        d["moe"] = _moe_defs(cfg, stack)
+    else:
+        d["ffn"] = _ffn_defs(cfg, stack)
     if cfg.post_norms:
         d["ln1_post"] = _norm_defs(cfg, stack)
         d["ln2_post"] = _norm_defs(cfg, stack)
@@ -126,7 +156,8 @@ def param_defs(cfg: ModelConfig):
     plan = stack_plan(cfg)
     return {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
-        "stages": {str(i): _stage_defs(cfg, (plan.repeats,))
+        "stages": {str(i): _stage_defs(cfg, (plan.repeats,),
+                                       cfg.moe is not None)
                    for i in range(len(cfg.pattern))},
         "final_norm": _norm_defs(cfg, ()),
         "lm_head": ParamDef((cfg.d_model, cfg.vocab_size),
@@ -150,16 +181,27 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.attn.sliding_window if kind == "local" else None
 
 
-def _finish_stage(x, h, p, cfg: ModelConfig, act_bits, impl):
-    """Residual + FFN half of an attention stage."""
+def _finish_stage(x, h, p, cfg: ModelConfig, act_bits, impl,
+                  capacity_factor: Optional[float] = None):
+    """Residual + FFN half of an attention stage → (x, aux loss: the
+    router's, 0 for a dense FFN). A MoE FFN runs at the config's capacity
+    factor unless `capacity_factor` is given (prefill and decode take 2.0,
+    as the JAX package's do)."""
     if cfg.post_norms:
         h = norm(h, p["ln1_post"], cfg.norm_type)
     x = x + h
-    h = ffn(norm(x, p["ln2"], cfg.norm_type), p["ffn"], cfg.ffn_type,
-            act_bits, impl)
+    h = norm(x, p["ln2"], cfg.norm_type)
+    aux = None
+    if "moe" in p:
+        mc = cfg.moe if capacity_factor is None else dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor)
+        h, aux = moe_mod.moe_ffn(h, p["moe"], mc, cfg.ffn_type, act_bits,
+                                 impl)
+    else:
+        h = ffn(h, p["ffn"], cfg.ffn_type, act_bits, impl)
     if cfg.post_norms:
         h = norm(h, p["ln2_post"], cfg.norm_type)
-    return x + h
+    return x + h, aux
 
 
 class Model:
@@ -204,18 +246,22 @@ class Model:
     # -- full-sequence forward ----------------------------------------------
 
     def forward(self, params, batch):
-        """batch: {"tokens" (B,S)} → logits (B,S,V), aux loss (0: no MoE)."""
+        """batch: {"tokens" (B,S)} → logits (B,S,V), aux loss (the MoE
+        routers' summed over layers; 0 without MoE)."""
         cfg = self.cfg
         x = self._embed_in(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
         ab, impl = self.act_bits, self.impl
+        aux = torch.zeros((), device=x.device)
         for p, _i, _r, kind in self._layers(params):
             h = attn_mod.gqa_forward(norm(x, p["ln1"], cfg.norm_type),
                                      p["attn"], cfg.attn, _window(cfg, kind),
                                      positions, ab, impl)
-            x = _finish_stage(x, h, p, cfg, ab, impl)
+            x, a = _finish_stage(x, h, p, cfg, ab, impl)
+            if a is not None:
+                aux = aux + a
         x = norm(x, params["final_norm"], cfg.norm_type)
-        return self._logits(params, x), torch.zeros((), device=x.device)
+        return self._logits(params, x), aux
 
     # -- caches ----------------------------------------------------------------
 
@@ -250,7 +296,7 @@ class Model:
                                        p["attn"], cfg.attn,
                                        _window(cfg, kind), c, pos, ab, impl,
                                        attn_impl=self.attn_impl)
-            x = _finish_stage(x, h, p, cfg, ab, impl)
+            x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
         x = norm(x, params["final_norm"], cfg.norm_type)
         return self._logits(params, x)[:, 0], cache
 
@@ -295,7 +341,7 @@ class Model:
                                          _window(cfg, kind), positions, ab,
                                          impl, return_kv=True)
             per_stage[str(i)].append(self._kv_to_cache(kind, kv, max_seq))
-            x = _finish_stage(x, h, p, cfg, ab, impl)
+            x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
         cache = {"stages": {
             i: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
             for i, cs in per_stage.items()}}

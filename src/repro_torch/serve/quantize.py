@@ -3,18 +3,22 @@
 
 Swaps every GeMV-shaped weight leaf for its packed bit-plane representation
 (`BitplaneWeights`); `models.layers.dense` then routes those projections
-through the bit-plane kernels. Norms and embeddings stay in floating point.
+through the bit-plane kernels. Norms, embeddings and MoE routers stay in
+floating point. Routed-expert tensors are quantized per expert (E-stacked
+bit planes) and served through `models.moe._expert_mm`.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..core.bitplane import BitplaneWeights, make_bitplane_weights
 from ..core.quant import QuantSpec
-from ..models.params import ParamDef
+from ..models.params import ParamDef, init_params
 
 # weight-leaf basenames served by the bit-plane engine (the JAX package's
-# set; the MoE/MLA/SSM names wait for those models' port)
+# set; the MLA/SSM names wait for those models' port)
 QUANT_LEAF_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "w_dkv",
     "up", "gate", "down", "shared_up", "shared_gate", "shared_down",
@@ -35,20 +39,10 @@ def _quantize_leaf(w: torch.Tensor, bits: int) -> BitplaneWeights:
     spec = QuantSpec(bits=bits, group_size=-1)
     if w.ndim == 2:
         return make_bitplane_weights(w, spec)
-    lead = w.shape[:-2]
-    flat = w.reshape((-1,) + w.shape[-2:])
-    parts = [make_bitplane_weights(flat[i], spec)
-             for i in range(flat.shape[0])]
-
-    def stack(xs):
-        return torch.stack(xs).reshape(lead + xs[0].shape)
-
-    return BitplaneWeights(
-        planes=stack([p.planes for p in parts]),
-        scale=stack([p.scale for p in parts]),
-        zero=parts[0].zero,
-        col_sum=stack([p.col_sum for p in parts]),
-        n=w.shape[-2], spec=spec)
+    if w.ndim == 3:
+        return _stack([make_bitplane_weights(w[i], spec)
+                       for i in range(w.shape[0])])
+    return _stack([_quantize_leaf(w[i], bits) for i in range(w.shape[0])])
 
 
 def quantize_params(params, bits: int):
@@ -60,6 +54,40 @@ def quantize_params(params, bits: int):
             return _quantize_leaf(leaf, bits)
         return leaf
     return _walk(params, fn)
+
+
+def _stack(parts: list) -> BitplaneWeights:
+    """BitplaneWeights of one shape → one with a new leading stack dim."""
+    return BitplaneWeights(
+        planes=torch.stack([p.planes for p in parts]),
+        scale=torch.stack([p.scale for p in parts]),
+        zero=parts[0].zero,
+        col_sum=torch.stack([p.col_sum for p in parts]),
+        n=parts[0].n, spec=parts[0].spec)
+
+
+def init_quantized_params(defs, bits: int, generator: torch.Generator,
+                          device=None):
+    """`quantize_params(init_params(defs, generator, device), bits)`
+    without the float model: each weight leaf is drawn and quantized, and
+    its floats freed, before the next is drawn, a stacked leaf one index of
+    its leading (layer) dim at a time. So the device holds the serving
+    parameters and at most one layer's float copy of one leaf (qwen2-moe's
+    routed experts: 0.74 GB of one layer's `w_up` where the whole leaf is
+    17.7 GB). Each draw is `init_params` of the leaf, or of one layer of
+    it, in tree order; the planes are `quantize_params`' of those floats.
+    They are other random weights than `init_params` of the whole tree
+    gives from the same generator: the truncated normal draws by
+    rejection, so a slice's numbers depend on the slice's size."""
+    def fn(path, d: ParamDef):
+        if not (path and path[-1] in QUANT_LEAF_NAMES and len(d.shape) >= 2):
+            return init_params(d, generator, device)
+        if len(d.shape) == 2:
+            return _quantize_leaf(init_params(d, generator, device), bits)
+        one = dataclasses.replace(d, shape=d.shape[1:], axes=d.axes[1:])
+        return _stack([_quantize_leaf(init_params(one, generator, device),
+                                      bits) for _ in range(d.shape[0])])
+    return _walk(defs, fn)
 
 
 def serving_bytes(defs, bits: int) -> dict:

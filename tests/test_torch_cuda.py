@@ -389,3 +389,90 @@ def test_quant_matmul_split_plans(gen, n, m, b, q, gs):
         l0["quant_matmul_fold"] + int(splits > 1)
     tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
     assert bool(((got - want).abs() <= tol).all())
+
+
+# B3 over an expert stack: (E, R, n, m, q, groups, counts). qwen2-moe's
+# up/gate and down at R = 8, with every expert's rows and with 16 routed
+# experts of 1-4 rows; ragged M (not a multiple of 4 or of 128) and ragged
+# R; E = 1; an empty expert beside a full one; splits of one tile folded
+# per expert, one of them empty; grouped scales (a contiguous tile-scale
+# stack)
+EXPERT_SHAPES = [
+    (64, 8, 2048, 1408, 4, 1, None), (64, 8, 1408, 2048, 4, 1, None),
+    (64, 8, 2048, 1408, 4, 1, "routed"), (64, 8, 1408, 2048, 4, 1, "routed"),
+    (5, 6, 300, 90, 3, 1, None), (3, 5, 1000, 130, 2, 1, [5, 0, 2]),
+    (1, 8, 2048, 1408, 4, 1, None), (1, 8, 1408, 2048, 4, 1, [3]),
+    (4, 8, 2048, 1408, 4, 1, [0, 8, 4, 5]),
+    (1, 4, 11008, 256, 2, 1, None), (2, 4, 4096, 130, 2, 1, [0, 3]),
+    (3, 4, 2048, 130, 4, 4, [4, 1, 0])]
+
+
+def _expert_stack(gen, e, n, m, q, g):
+    from repro_torch.serve.quantize import _stack
+    return _stack([_leaf(gen, n, m, q, g) for _ in range(e)])
+
+
+def _expert_counts(gen, e, r, spec):
+    if spec is None:
+        return None
+    if spec == "routed":          # 16 experts with 1..4 rows, the rest 0
+        counts = torch.zeros(e, dtype=torch.int32, device="cuda")
+        pick = torch.randperm(e, generator=gen, device="cuda")[:16]
+        counts[pick] = torch.randint(1, 5, (16,), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+        return counts
+    return torch.tensor(spec, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("e,r,n,m,q,g,spec", EXPERT_SHAPES)
+def test_gemv_f_experts_within_tolerance(gen, e, r, n, m, q, g, spec):
+    bw = _expert_stack(gen, e, n, m, q, g)
+    counts = _expert_counts(gen, e, r, spec)
+    x = torch.randn((e, r, n), generator=gen, device="cuda")
+    if counts is not None:        # rows past a count are zero, as dispatched
+        live = torch.arange(r, device="cuda") < counts[:, None]
+        x = torch.where(live[..., None], x, 0.0)
+    k0, c0 = dict(kernel.LAUNCHES), dict(ref.CALLS)
+    got = ops.bitplane_gemv(x, bw, counts=counts)
+    torch.cuda.synchronize()
+    assert ref.CALLS == c0
+    bn, _ = ops._pick_blocks(n, m, None, None, n // g if g > 1 else None)
+    _, splits = kernel.split_plan(-(-n // bn), m, r,
+                                  kernel._sms(torch.device("cuda")),
+                                  experts=e)
+    assert kernel.LAUNCHES["gemv_f_experts"] == k0["gemv_f_experts"] + 1
+    assert kernel.LAUNCHES["gemv_f_experts_fold"] == \
+        k0["gemv_f_experts_fold"] + int(splits > 1)
+    assert kernel.LAUNCHES["gemv_f"] == k0["gemv_f"]
+    for want in (ops.bitplane_gemv(x, bw, impl="reference", counts=counts),
+                 ops.bitplane_gemv(x, bw, impl="reference")):
+        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        assert bool(((got - want).abs() <= tol).all())
+    if counts is not None:
+        for i, c in enumerate(counts.tolist()):
+            assert not bool(got[i, c:].any())
+    if e <= 5:                    # each expert as a leaf through B3
+        for i in range(e):
+            want = ops.bitplane_gemv(x[i], bw[i])
+            tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+            assert bool(((got[i] - want).abs() <= tol).all())
+
+
+def test_gemv_f_experts_rejects_bad_inputs(gen):
+    bw = _expert_stack(gen, 3, 256, 40, 2, 1)
+    x = torch.randn((3, 4, 256), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="activations"):
+        ops.bitplane_gemv(x[:2], bw)
+    with pytest.raises(ValueError, match="counts"):
+        ops.bitplane_gemv(x, bw, counts=torch.zeros(
+            3, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="counts"):
+        ops.bitplane_gemv(x[0], bw[0], counts=torch.zeros(
+            3, dtype=torch.int32, device="cuda"))
+    scale_t = bw.scale.expand(3, 1, 40)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.gemv_f_experts(x, bw.planes.transpose(2, 3), scale_t, q=2,
+                              zero=bw.zero, bn=256)
+    with pytest.raises(ValueError, match="experts"):
+        kernel.gemv_f_experts(x, bw.planes[:2], scale_t, q=2, zero=bw.zero,
+                              bn=256)
