@@ -29,7 +29,8 @@ Phases, each printing one JSON line:
   5. kernels: B4 decode_attention against its plain version at llama2-7b's
      full context (B = 4 lanes, 4096 stamped slots, 32 heads of 128) with
      a bf16 and an int8 cache, and on small GQA, windowed ring-buffer and
-     no-valid-slot shapes (rtol/atol 1e-5 for a float32 output, one bf16
+     no-valid-slot shapes, and at head dims 16 and 112 (between the
+     kernel's built sizes) on int8 and bf16 caches of 4096 slots (rtol/atol 1e-5 for a float32 output, one bf16
      ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
      decode shapes, q2, and one grouped shape, with B3's split plan (rtol
      1e-5, atol 1e-5·max|plain|); each timed beside its plain version, its
@@ -46,9 +47,9 @@ Phases, each printing one JSON line:
      same tokens: reported at act_bits=4 (chaotic there, see PERF.md), held
      to 5 % of max|logit| with float activations;
   7. profile: `repro_torch.launch.profile_decode.profile` serves the
-     act_bits=None (B3) and act_bits=4 slices once more under
-     torch.profiler, one line with both runs' device busy share and top
-     kernels;
+     act_bits=None (B3) and act_bits=4 slices once more (8 new tokens)
+     under torch.profiler, one line with both runs' device busy share and
+     top kernels;
   8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
@@ -58,19 +59,23 @@ Phases, each printing one JSON line:
      1408→2048, q4, 8 capacity rows), with every expert full and with the
      row counts of a decode step's routing (16 (token, expert) pairs of 4
      lanes), a ragged M, one expert, an empty expert beside a full one:
-     rtol 1e-5 / atol 1e-5·max|plain| against its plain version; timed
-     beside the plain version, its bound (full capacity, and the routed
-     experts' bytes) and a torch.bmm of a bf16 stack of the same shape;
+     each shape on f32 activations padded for B3's block body and on the
+     same values in bf16, unpadded, on the tensor cores (the MoE path's
+     kernel, its grid over `live` expert slots: 16 at the routed shapes);
+     rtol 1e-5 / atol 1e-5·max|plain| against the plain version; timed
+     beside the plain version, its bound (full capacity, and what the
+     routed experts need; the bf16 kernel's operations at the bf16
+     tensor-core rate, its products being exact) and a torch.bmm of a
+     bf16 stack of the same shape;
  10. slice, qwen2-moe-a2.7b at full width (24 layers, 64 experts, q4;
      random weights from a seed, drawn and quantized one leaf at a time
      after llama2-7b's weights are freed), act_bits=None: the same 4
-     requests through B3, the expert stacks through its stacked launch
-     (72 a forward pass, no per-expert launch); prefill logits within 5 %
-     of max|logit| of the same model on the plain versions, and the count
-     of (token, layer) top-k expert sets that differ between the two runs;
-     if router flips alone break the 5 % rule (the plain versions on the
-     kernel run's expert choices within 5 %), every stacked call of a
-     replay is held against its plain version instead;
+     requests through B3, the bf16 expert stacks through the tensor-core
+     stacked launch (72 a forward pass, no f32 or per-expert launch);
+     prefill logits on the kernel run's expert choices within 5 % of
+     max|logit| of the same model on the plain versions, and the count of
+     (token, layer) top-k expert sets that differ between the two runs;
+     every stacked call of a replay held against its plain version;
  11. slice, qwen2-moe-a2.7b, act_bits=4: B2 on q/k/v and the shared
      up/gate, B1 on wo, the shared down and lm_head, the stacked B3 on the
      experts; every stacked call of a replay held against its plain
@@ -97,7 +102,7 @@ B = 4                      # decode lanes of the slice
 PROMPT, NEW = 16, 16       # tokens per request
 SEED = 0
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
-PEAK_OPS_S = {"int8": 1979e12, "float32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50 * 2**20
 B3_RTOL = 1e-5
 
@@ -111,6 +116,9 @@ REPLACES = {
     "gemv_f_experts": "src/repro/kernels/bitplane_gemv/kernel.py:84 "
                       "gemv_f_pallas under jax.vmap at "
                       "src/repro/models/moe.py:45",
+    "gemv_f_experts_mma": "src/repro/kernels/bitplane_gemv/kernel.py:84 "
+                          "gemv_f_pallas under jax.vmap at "
+                          "src/repro/models/moe.py:45",
 }
 SOURCES = {
     "gemv_bs": "src/repro_torch/csrc/bitplane_gemv.cu",
@@ -119,6 +127,7 @@ SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
     "gemv_f_experts": "src/repro_torch/csrc/bitplane_gemv.cu",
+    "gemv_f_experts_mma": "src/repro_torch/csrc/experts_mma.cu",
 }
 CONTEXT = 4096             # llama2-7b's published context (KV-cache slots)
 MOE_ARCH = "qwen2-moe-a2.7b"
@@ -581,6 +590,12 @@ DECODE_SHAPES = [
     ("gqa Hkv=8 f32", 2, 1000, 32, 8, 128, "f32", None, 0),
     ("ring window=1024 int8", 4, 1024, 32, 32, 128, "int8", 1024, 0),
     ("lane without valid slot f32", 2, 512, 32, 32, 128, "f32", None, 0),
+    # head dims between the built sizes: 16 (tiny configs), 112
+    # (zamba2-7b), at full context
+    ("D=16 int8 cache", 4, CONTEXT, 32, 32, 16, "int8", None, 0),
+    ("D=16 bf16 cache", 4, CONTEXT, 32, 32, 16, "bf16", None, 0),
+    ("D=112 int8 cache", 4, CONTEXT, 32, 32, 112, "int8", None, 0),
+    ("D=112 bf16 cache", 4, CONTEXT, 32, 32, 112, "bf16", None, 0),
 ]
 
 
@@ -868,8 +883,10 @@ def phase_profile(cfg, qparams) -> dict:
     import torch
     from repro_torch.launch.profile_decode import profile
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    # half the slices' new tokens: the profiler's event processing, not
+    # the run, takes most of this phase's time
     runs = [profile(cfg, qparams, act_bits=ab, batch=B, prompt_len=PROMPT,
-                    tokens=NEW, gen=gen) for ab in (None, 4)]
+                    tokens=NEW // 2, gen=gen) for ab in (None, 4)]
     for r in runs:
         if not r["top_kernels"] or r["device_kernel_s"] <= 0:
             raise AssertionError(f"profile at act_bits={r['act_bits']} saw "
@@ -1009,12 +1026,35 @@ def _routed_counts(e, gen, lanes=B, k=4):
     return torch.bincount(picks.reshape(-1), minlength=e).to(torch.int32)
 
 
-def phase_expert_kernels() -> list:
+def _held_b3(name, got, want, counts=None) -> float:
+    """Max |Δ| of a B3 output against its plain version's, raising outside
+    rtol/atol B3_RTOL (atol relative to max|plain|), or, for a stack with
+    `counts`, if a row at or past its expert's count is not zero."""
+    import torch
+    err = float((got - want).abs().max())
+    tol = B3_RTOL * want.abs() + B3_RTOL * float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or not bool(
+            ((got - want).abs() <= tol).all()):
+        raise AssertionError(f"{name}: max|Δ| {err} outside rtol/atol "
+                             f"{B3_RTOL}")
+    if counts is not None:
+        rows = torch.arange(got.shape[1], device=got.device)
+        if bool(got[rows[None, :] >= counts[:, None]].any()):
+            raise AssertionError(f"{name}: rows past a count are not zero")
+    return err
+
+
+def phase_expert_kernels() -> tuple:
+    """(f32 rows, bf16 rows): the stacked B3 at every EXPERT_SHAPES entry,
+    on f32 activations padded for B3's block body (`experts_kernel`) and
+    on the same values in bf16, unpadded, on the tensor cores
+    (`experts_mma_kernel`, the MoE path's), with the plan over `live`
+    expert slots (16 at a decode step's routing: 4 lanes × top-4)."""
     import torch
     from repro_torch.kernels.bitplane_gemv import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
+    rows, rows16 = [], []
     for name, e, r, n, m, q, spec, count in EXPERT_SHAPES:
         bw = _expert_stack(e, n, m, q, gen)
         counts = (None if spec is None else _routed_counts(e, gen)
@@ -1033,21 +1073,11 @@ def phase_expert_kernels() -> list:
         got = kernel.gemv_f_experts(a, bw.planes, scale_t, counts, **kw)
         want = ref.gemv_f_experts_ref(a, bw.planes, scale_t, counts, **kw)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = B3_RTOL * want.abs() + B3_RTOL * float(want.abs().max())
-        if not bool(((got - want).abs() <= tol).all()):
-            raise AssertionError(f"gemv_f_experts {name}: max|Δ| {err} "
-                                 f"outside rtol/atol {B3_RTOL}")
-        if counts is not None and any(
-                bool(got[i, c:].any()) for i, c in
-                enumerate(counts.clamp(max=r).tolist())):
-            raise AssertionError(f"gemv_f_experts {name}: rows past a "
-                                 f"count are not zero")
+        err = _held_b3(f"gemv_f_experts {name}", got, want, counts)
         copies = [bw] + [_expert_stack(e, n, m, q, gen) for _ in
                          range(copies_for(nbytes(bw.planes)) - 1)]
         ms = graph_ms([lambda c=c: kernel.gemv_f_experts(
             a, c.planes, scale_t, counts, **kw) for c in copies], 20)
-        del copies
         plain = eager_ms(lambda: ref.gemv_f_experts_ref(
             a, bw.planes, scale_t, counts, **kw), reps=1)
         # full capacity: every expert's planes, scales and rows; routed:
@@ -1067,18 +1097,52 @@ def phase_expert_kernels() -> list:
         lib_ms = graph_ms([lambda w=w: torch.bmm(xb, w) for w in wlib], 20)
         del wlib
         plan = kernel.split_plan(a.shape[2] // bn, m, r, sms, experts=e)
+        plane_ms = busy * nbytes(bw.planes[0]) / HBM_BYTES_S * 1e3
         rows.append(dict(
             shape=name, experts=e, rows=r, n=n, m=m, q=q,
             experts_with_rows=busy, live_rows=live_rows, count=count,
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
             bound_by=by, full_capacity_bound_ms=t_full,
-            full_capacity_bound_by=by_full,
-            plane_bound_ms=busy * nbytes(bw.planes[0]) / HBM_BYTES_S * 1e3,
+            full_capacity_bound_by=by_full, plane_bound_ms=plane_ms,
             library_ms=lib_ms, tiles_per_block=plan[0], splits=plan[1]))
-        del bw, x, a
-    for row in rows:
-        emit({"phase": "kernel_check", "kernel": "gemv_f_experts", **row})
-    return rows
+
+        # the same values in bf16, unpadded: the tensor-core kernel over
+        # `live` expert slots (the MoE path's bound: 4 lanes × top-4)
+        tiles = -(-n // bn)
+        s16 = bw.scale.expand(e, tiles, m)
+        slots = min(e, B * 4) if spec == "routed" else e
+        kw16 = dict(kw, live=slots)
+        got = kernel.gemv_f_experts(xb, bw.planes, s16, counts, **kw16)
+        want = ref.gemv_f_experts_ref(xb, bw.planes, s16, counts, **kw16)
+        torch.cuda.synchronize()
+        err = _held_b3(f"gemv_f_experts bf16 {name}", got, want, counts)
+        ms = graph_ms([lambda c=c: kernel.gemv_f_experts(
+            xb, c.planes, s16, counts, **kw16) for c in copies], 20)
+        del copies
+        plain = eager_ms(lambda: ref.gemv_f_experts_ref(
+            xb, bw.planes, s16, counts, **kw16), reps=1)
+        # the products are exact in f32 (tests/test_torch_experts_mma.py),
+        # so the operations count at the bf16 tensor-core rate
+        t_full, by_full = bound(nbytes(xb, bw.planes, bw.scale),
+                                nbytes(got), 2.0 * e * r * n * m,
+                                "bfloat16")
+        t_bound, by = bound(busy * per_expert + live_rows * n * 2,
+                            nbytes(got), 2.0 * live_rows * n * m,
+                            "bfloat16")
+        plan = kernel.mma_plan(tiles, m, r, sms, e, slots)
+        rows16.append(dict(
+            shape=name, experts=e, rows=r, n=n, m=m, q=q, live=slots,
+            experts_with_rows=busy, live_rows=live_rows, count=count,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
+            bound_by=by, full_capacity_bound_ms=t_full,
+            full_capacity_bound_by=by_full, plane_bound_ms=plane_ms,
+            library_ms=lib_ms, tiles_per_block=plan[0], splits=plan[1]))
+        del bw, x, a, xb
+    for kname, rs in (("gemv_f_experts", rows),
+                      ("gemv_f_experts_mma", rows16)):
+        for row in rs:
+            emit({"phase": "kernel_check", "kernel": kname, **row})
+    return rows, rows16
 
 
 # ---------------------------------------------------------------------------
@@ -1178,12 +1242,8 @@ def held_on_path(eng, prompts) -> dict:
     def experts(a, planes, scale_tiles, counts=None, **kw):
         got = real[0](a, planes, scale_tiles, counts, **kw)
         want = ref.gemv_f_experts_ref(a, planes, scale_tiles, counts, **kw)
-        err = float((got - want).abs().max())
-        tol = B3_RTOL * want.abs() + B3_RTOL * float(want.abs().max())
-        if not bool(((got - want).abs() <= tol).all()):
-            raise AssertionError(f"gemv_f_experts on the path: max|Δ| {err} "
-                                 f"outside rtol/atol {B3_RTOL}")
-        held["gemv_f_experts"].append(err)
+        held["gemv_f_experts"].append(
+            _held_b3("gemv_f_experts on the path", got, want, counts))
         return got
 
     def bitwise(name, got, want):
@@ -1237,7 +1297,7 @@ def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
     # a forward pass: 3 stacks a layer; attention's 4 linears, the shared
     # FFN's 3 and lm_head through B1/B2 or B3
     layers, passes = cfg.num_layers, NEW
-    want = {"gemv_f_experts": 3 * layers * passes}
+    want = {"gemv_f_experts_mma": 3 * layers * passes, "gemv_f_experts": 0}
     if act_bits:
         want |= {"gemv_f": 0, "program_gemv": 2 * layers * passes,
                  "gemv_bs": (2 * layers + 1) * passes}
@@ -1294,21 +1354,24 @@ def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
            "expert_sets_differing_vs_plain": flips,
            "prefill_logits_max_abs_err_vs_plain_same_experts": err_same}
     # float activations: the logits within 5 % of max|logit| of the plain
-    # versions'; should router flips alone break that (the plain versions
-    # on the kernel run's expert choices within 5 %), every stacked call
-    # is held against its plain version on the path instead. At act_bits=4
-    # the logits are chaotic (PERF.md §6): reported, and every stacked
-    # call held on the path, every B1 and B2 call bitwise.
+    # versions' on the kernel run's expert choices (router flips alone
+    # break the plain 5 % rule, PERF.md §6). At act_bits=4 the logits are
+    # chaotic: reported. Either way every stacked call of a replay is held
+    # against its plain version on the path's inputs, and at act_bits=4
+    # every B1 and B2 call bitwise.
     if not act_bits and err_same > LOGIT_RTOL * scale:
         raise AssertionError(f"{what}: logits differ from the plain "
                              f"versions' on the same experts (max|Δ| "
                              f"{err_same}, max|logit| {scale})")
-    if act_bits or err > LOGIT_RTOL * scale:
-        if not act_bits and flips == 0:
-            raise AssertionError(f"{what}: logits differ from the plain "
-                                 f"versions' (max|Δ| {err}, max|logit| "
-                                 f"{scale}) with the same experts routed")
-        out["held_on_path"] = held_on_path(eng, prompts)
+    if not act_bits and err > LOGIT_RTOL * scale and flips == 0:
+        raise AssertionError(f"{what}: logits differ from the plain "
+                             f"versions' (max|Δ| {err}, max|logit| "
+                             f"{scale}) with the same experts routed")
+    out["held_on_path"] = held = held_on_path(eng, prompts)
+    if held["gemv_f_experts"]["calls"] != want["gemv_f_experts_mma"]:
+        raise AssertionError(f"{what}: {held['gemv_f_experts']['calls']} "
+                             f"stacked calls held on the replay, not "
+                             f"{want['gemv_f_experts_mma']}")
     emit(out)
     return out
 
@@ -1378,7 +1441,7 @@ def main() -> int:
     sb = phase_baseline_slice(cfg, prompts)
     torch.cuda.empty_cache()          # llama2-7b's weights are all freed
 
-    rows["gemv_f_experts"] = phase_expert_kernels()
+    _, rows["gemv_f_experts_mma"] = phase_expert_kernels()
     moe_cfg, moe_params, moe_prompts = phase_moe_model()
     smf = phase_moe_slice(moe_cfg, moe_params, moe_prompts, None)
     phase_moe_slice(moe_cfg, moe_params, moe_prompts, 4)
@@ -1390,7 +1453,7 @@ def main() -> int:
     launches["decode_attention"] = sa["launches"]["decode_attention"]
     launches["quant_matmul"] = sb["launches"]["quant_matmul"]
     launches["quant_matmul_fold"] = sb["launches"]["quant_matmul_fold"]
-    for k in ("gemv_f_experts", "gemv_f_experts_fold"):
+    for k in ("gemv_f_experts_mma", "gemv_f_experts_mma_fold"):
         launches[k] = smf["launches"][k]
     # per kernel, its shapes summed as one decode layer (plus lm_head) calls
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the

@@ -9,9 +9,10 @@
 //   whole concurrency group (q/k/v, up/gate) in one launch.
 // B3 gemv_f       — replaces `gemv_f_pallas` / `_gemv_f_kernel`
 //   (kernel.py): float activations × packed weight planes; and, over a
-//   stack of experts in one launch (`experts_kernel`), the JAX package's
-//   `jax.vmap` of it over the routed experts (src/repro/models/moe.py,
-//   `_expert_mm`).
+//   stack of experts in one launch (`experts_kernel`, f32 stacks), the JAX
+//   package's `jax.vmap` of it over the routed experts
+//   (src/repro/models/moe.py, `_expert_mm`). bf16 stacks, the MoE path's,
+//   run on the tensor cores (`experts_mma.cu`).
 //
 // Bound. At decode (B = 4 rows) B1 and B2 are bound by bytes: each call
 // must read the packed planes once, q·N·M/8 bytes (4 MiB for a 4096×4096
@@ -98,17 +99,13 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "gemv_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;            // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;             // output columns per lane
-constexpr int kStrip = 32 * kCols;   // output columns per block
 constexpr int kRows = 4;             // batch rows per block (grid.z)
 constexpr int kOut = kRows * kStrip; // outputs of a block's strip
 constexpr int kMaxUnit = 4;          // words per work item
-constexpr int kMaxTiles = 8;         // tiles per block (B1's shared sums)
 constexpr int kMaxMembers = 8;       // members of a by-value table
 constexpr float kMagic = 8388608.f;  // as_float(0x4B000000 | c) = 2^23 + c
 
@@ -157,27 +154,6 @@ struct Smem {
     int corr[kMaxTiles][kOut];                  // B1: each tile's correction
   };
 };
-
-// 4 int32 words at p[0..3] (columns m..m+3), zero past M
-__device__ __forceinline__ int4 load4(const int32_t* p, int m, int M,
-                                      bool vec) {
-  if (vec) return m < M ? __ldg(reinterpret_cast<const int4*>(p))
-                        : make_int4(0, 0, 0, 0);
-  int v[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) v[c] = m + c < M ? __ldg(p + c) : 0;
-  return make_int4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ float4 load4f(const float* p, int m, int M,
-                                         bool vec) {
-  if (vec) return m < M ? __ldg(reinterpret_cast<const float4*>(p))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-  float v[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) v[c] = m + c < M ? __ldg(p + c) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
 
 __device__ __forceinline__ float get(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -552,10 +528,6 @@ __global__ void fold_float_kernel(const float* __restrict__ part,
   float y = 0.f;
   for (int s = 0; s < splits; ++s) y += part[(e * splits + s) * BM + i];
   out[o] = y;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // The checks of a one-matrix launch and its split; true if valid.

@@ -22,6 +22,14 @@
 // accumulator); the groups merge with shuffles, then the warps through
 // shared memory, in place of the TPU's sequential grid axis.
 //
+// Head dims. The kernel is built for kD ∈ {32, 64, 128, 256} and takes
+// the true head dim D ≤ kD at run time: elements at d ≥ D are neither
+// loaded nor stored and count as 0 in q·k. D = kD runs with D known at
+// compile time (`kExact`, the built sizes' code unchanged). A D whose K/V
+// row is a whole number of 16-byte loads keeps them (a load lies wholly
+// below D or wholly past it); any other D takes element-wide loads packed
+// into the same registers (`kNarrow`), in the same kernel body.
+//
 // A slot that fails the mask is not read when the lane has any valid slot:
 // its weight exp(NEG_INF − max) is exactly 0, as in the reference. A lane
 // with no valid slot reads every slot: each weighs exp(NEG_INF − NEG_INF)
@@ -44,6 +52,7 @@ constexpr float kNegInf = -2.3819763e38f;   // the reference's NEG_INF
 constexpr int kWarps = 16;
 constexpr int kUnroll = 4;     // loads of K and V in flight per lane
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxHeadDim = 256;   // the largest built head dim
 
 template <typename T>
 struct Elems;                  // elements of T in 16 bytes
@@ -74,6 +83,32 @@ __device__ __forceinline__ void widen(const uint4& r, float* out) {
   }
 }
 
+// 16 bytes' worth of elements at p, of which the first `valid` are read
+// one at a time (any alignment) and packed as a 16-byte load would hold
+// them; the rest are zero
+template <typename T>
+__device__ __forceinline__ uint4 load_narrow(const T* p, int valid) {
+  constexpr int E = Elems<T>::value;
+  constexpr int per = E / 4;                       // elements per word
+  constexpr int bits = 32 / per;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (e < valid) {
+      uint32_t raw;
+      if constexpr (sizeof(T) == 4)
+        raw = __ldg(reinterpret_cast<const uint32_t*>(p) + e);
+      else if constexpr (sizeof(T) == 2)
+        raw = __ldg(reinterpret_cast<const unsigned short*>(p) + e);
+      else
+        raw = static_cast<uint8_t>(__ldg(reinterpret_cast<const char*>(p)
+                                         + e));
+      w[e / per] |= raw << (bits * (e % per));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -89,21 +124,25 @@ __device__ __forceinline__ bool slot_ok(int stamp, int pos, int window) {
 
 // pos (B,); q (B, H, D); k/v (B, S, Hkv, D); stamps (B, S); ks/vs
 // (B, S, Hkv) f32 or null (float cache); out (B, H, D). Grid (H, B).
-template <typename QT, typename KT, int D>
+// Built for head dim kD; D ≤ kD at run time. kExact: D = kD, known at
+// compile time. kNarrow: D·sizeof(KT) is not a multiple of 16 bytes, and
+// K/V are read element by element.
+template <typename QT, typename KT, int kD, bool kExact, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
               const KT* __restrict__ k, const KT* __restrict__ v,
               const int32_t* __restrict__ stamps,
               const float* __restrict__ ks, const float* __restrict__ vs,
               QT* __restrict__ out, int S, int s_pad, int H, int Hkv,
-              float scale, int window) {
+              int d_run, float scale, int window) {
+  const int D = kExact ? kD : d_run;
   constexpr int E = Elems<KT>::value;          // elements per 16-byte load
-  constexpr int L = D / E < 32 ? D / E : 32;   // lanes per slot
-  constexpr int NV = D / (E * L);              // loads per lane per slot
+  constexpr int L = kD / E < 32 ? kD / E : 32; // lanes per slot
+  constexpr int NV = kD / (E * L);             // loads per lane per slot
   constexpr int G = 32 / L;                    // slots per warp load
   constexpr bool kInt8 = sizeof(KT) == 1;
-  static_assert(D % (E * L) == 0 && 32 % L == 0, "head dim");
-  __shared__ float s_m[kWarps], s_l[kWarps], s_acc[kWarps][D];
+  static_assert(kD % (E * L) == 0 && 32 % L == 0, "head dim");
+  __shared__ float s_m[kWarps], s_l[kWarps], s_acc[kWarps][kD];
   const float kMinusInf = __int_as_float(0xff800000);   // -inf
 
   const int h = blockIdx.x, b = blockIdx.y;
@@ -114,9 +153,8 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
   const long row = static_cast<long>(Hkv) * D;       // elements per slot
   const long base = static_cast<long>(b) * S * row + static_cast<long>(hk)
                     * D;
-  const uint4* kb = reinterpret_cast<const uint4*>(k + base);
-  const uint4* vb = reinterpret_cast<const uint4*>(v + base);
-  const long vrow = row / E;                          // uint4 per slot
+  const KT* kp = k + base;
+  const KT* vp = v + base;
   const int32_t* st = stamps + static_cast<long>(b) * S;
   const long sbase = static_cast<long>(b) * S * Hkv + hk;
 
@@ -133,7 +171,8 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
   for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      qv[n][e] = to_float(qp[(n * L + sub) * E + e]);
+      const int d = (n * L + sub) * E + e;
+      qv[n][e] = d < D ? to_float(qp[d]) : 0.f;
       acc[n][e] = 0.f;
     }
   float m = kNegInf, l = 0.f;
@@ -151,9 +190,19 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
       const bool read = live[u] && (ok[u] || !any);
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
-        const long off = static_cast<long>(t) * vrow + n * L + sub;
-        kr[u][n] = read ? kb[off] : make_uint4(0, 0, 0, 0);
-        vr[u][n] = read ? vb[off] : make_uint4(0, 0, 0, 0);
+        // this lane's E elements of the slot's head: d0 .. d0 + E − 1
+        const int d0 = (n * L + sub) * E;
+        const long off = static_cast<long>(t) * row + d0;
+        kr[u][n] = vr[u][n] = make_uint4(0, 0, 0, 0);
+        if (read && d0 < D) {
+          if constexpr (kNarrow) {
+            kr[u][n] = load_narrow(kp + off, D - d0);
+            vr[u][n] = load_narrow(vp + off, D - d0);
+          } else {             // D·sizeof(KT) % 16 == 0: whole loads
+            kr[u][n] = *reinterpret_cast<const uint4*>(kp + off);
+            vr[u][n] = *reinterpret_cast<const uint4*>(vp + off);
+          }
+        }
       }
       ksc[u] = 1.f;
       vsc[u] = 1.f;
@@ -234,7 +283,7 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
   }
   __syncthreads();
   // merge the warps, one thread per output element
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {   // d < D only
     float mg = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mg = fmaxf(mg, s_m[w]);
@@ -251,39 +300,43 @@ decode_kernel(const int32_t* __restrict__ pos, const QT* __restrict__ q,
   }
 }
 
-template <typename QT, typename KT, int D>
+template <typename QT, typename KT, int kD>
 int launch(const void* pos, const void* q, const void* k, const void* v,
            const void* stamps, const void* ks, const void* vs, void* out,
-           int B, int S, int s_pad, int H, int Hkv, float scale, int window,
-           cudaStream_t stream) {
-  decode_kernel<QT, KT, D><<<dim3(H, B), kWarps * 32, 0, stream>>>(
-      static_cast<const int32_t*>(pos), static_cast<const QT*>(q),
-      static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const int32_t*>(stamps), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<QT*>(out), S, s_pad, H,
-      Hkv, scale, window);
+           int B, int S, int s_pad, int H, int Hkv, int D, float scale,
+           int window, cudaStream_t stream) {
+#define DECODE_LAUNCH(EXACT, NARROW)                                        \
+  decode_kernel<QT, KT, kD, EXACT, NARROW>                                  \
+      <<<dim3(H, B), kWarps * 32, 0, stream>>>(                             \
+      static_cast<const int32_t*>(pos), static_cast<const QT*>(q),          \
+      static_cast<const KT*>(k), static_cast<const KT*>(v),                 \
+      static_cast<const int32_t*>(stamps), static_cast<const float*>(ks),   \
+      static_cast<const float*>(vs), static_cast<QT*>(out), S, s_pad, H,    \
+      Hkv, D, scale, window)
+  if (D == kD)
+    DECODE_LAUNCH(true, false);
+  else if (D * static_cast<int>(sizeof(KT)) % 16 == 0)
+    DECODE_LAUNCH(false, false);
+  else
+    DECODE_LAUNCH(false, true);
+#undef DECODE_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
+// D rounded up to the next built head dim kD ∈ {32, 64, 128, 256}
 template <typename QT, typename KT>
 int by_dim(int D, const void* pos, const void* q, const void* k,
            const void* v, const void* stamps, const void* ks, const void* vs,
            void* out, int B, int S, int s_pad, int H, int Hkv, float scale,
            int window, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<QT, KT, 32>(pos, q, k, v, stamps, ks, vs, out, B, S,
-                                s_pad, H, Hkv, scale, window, stream);
-    case 64:
-      return launch<QT, KT, 64>(pos, q, k, v, stamps, ks, vs, out, B, S,
-                                s_pad, H, Hkv, scale, window, stream);
-    case 128:
-      return launch<QT, KT, 128>(pos, q, k, v, stamps, ks, vs, out, B, S,
-                                 s_pad, H, Hkv, scale, window, stream);
-    case 256:
-      return launch<QT, KT, 256>(pos, q, k, v, stamps, ks, vs, out, B, S,
-                                 s_pad, H, Hkv, scale, window, stream);
-  }
+  if (D < 1 || D > kMaxHeadDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define BY_DIM(KD)                                                          \
+  if (D <= KD)                                                              \
+    return launch<QT, KT, KD>(pos, q, k, v, stamps, ks, vs, out, B, S,      \
+                              s_pad, H, Hkv, D, scale, window, stream);
+  BY_DIM(32) BY_DIM(64) BY_DIM(128) BY_DIM(256)
+#undef BY_DIM
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -310,8 +363,8 @@ int by_kv(int kv_type, int D, const void* pos, const void* q, const void* k,
 }  // namespace
 
 // q_type: 0 f32, 1 bf16 (out has q's type); kv_type: 0 f32, 1 bf16, 2 int8
-// (then ks/vs are the scales); window < 0: no window; s_pad ≥ S: the slot
-// count a lane with no valid slot divides by.
+// (then ks/vs are the scales); 1 ≤ D ≤ 256; window < 0: no window;
+// s_pad ≥ S: the slot count a lane with no valid slot divides by.
 extern "C" int decode_attention_launch(const void* pos, const void* q,
                                        const void* k, const void* v,
                                        const void* stamps, const void* ks,

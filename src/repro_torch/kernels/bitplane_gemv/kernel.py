@@ -1,9 +1,11 @@
 """Wrappers of the per-leaf bit-plane GeMV CUDA kernels (`csrc/
-bitplane_gemv.cu`): B1 `gemv_bs` (integer activation codes) and B3
-`gemv_f` (float activations), the counterparts of the JAX package's
-`gemv_bs_pallas` and `gemv_f_pallas`; B3 over a stack of experts in one
+bitplane_gemv.cu`; `csrc/experts_mma.cu` for bf16 expert stacks): B1
+`gemv_bs` (integer activation codes) and B3 `gemv_f` (float
+activations), the counterparts of the JAX package's `gemv_bs_pallas` and
+`gemv_f_pallas`; B3 over a stack of experts in one
 launch (`gemv_f_experts`, where the JAX package vmaps `gemv_f_pallas`
-over the experts in `models/moe.py`); and the member table (`Member`,
+over the experts in `models/moe.py`: f32 stacks on B3's block body, bf16
+stacks read in place on the tensor cores); and the member table (`Member`,
 `Table`) through which B2 (`program.py`) launches the same block body over
 a group.
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -21,10 +24,12 @@ from .. import build
 from . import ref
 
 #: launches of each CUDA kernel (the plain versions count in ref.CALLS):
-#: `gemv_bs`/`gemv_f`/`gemv_f_experts` one per call, `*_fold` the second
-#: launch of a call whose reduction is split over blocks
+#: `gemv_bs`/`gemv_f`/`gemv_f_experts` one per call (the last for f32
+#: stacks, `gemv_f_experts_mma` for bf16 ones), `*_fold` the second launch
+#: of a call whose reduction is split over blocks
 LAUNCHES = {"gemv_bs": 0, "gemv_f": 0, "gemv_f_experts": 0,
-            "gemv_bs_fold": 0, "gemv_f_fold": 0, "gemv_f_experts_fold": 0}
+            "gemv_f_experts_mma": 0, "gemv_bs_fold": 0, "gemv_f_fold": 0,
+            "gemv_f_experts_fold": 0, "gemv_f_experts_mma_fold": 0}
 
 MAX_BN = 512   # bn the kernels take (16 words per reduction tile)
 MAX_BITS = 8
@@ -39,6 +44,12 @@ MAX_TILES_PER_BLOCK = 8
 BLOCKS_PER_SM = 4
 #: members of a by-value table (B2's group launch)
 MAX_MEMBERS = 8
+#: the bf16 expert stack's kernel: batch rows of a block (two 8-row
+#: n-tiles of mma.m16n8k16), experts a launch scans for rows, and the
+#: weight zero points it takes (bf16 (128 + zero) exact)
+MMA_ROWS = 16
+MAX_EXPERTS_MMA = 256
+MAX_ZERO_MMA = 128
 
 
 class Member(ctypes.Structure):
@@ -68,20 +79,26 @@ class Table(ctypes.Structure):
                 ("pad", ctypes.c_int)]
 
 
-def split_plan(tiles: int, m: int, b: int, sms: int,
-               experts: int = 1) -> tuple:
+def split_plan(tiles: int, m: int, b: int, sms: int, experts: int = 1,
+               live: Optional[int] = None, rows_per_block: int = ROWS
+               ) -> tuple:
     """(tiles_per_block, splits): how a launch splits the reduction tiles
     of every column strip over blocks. Enough splits that the grid reaches
     BLOCKS_PER_SM blocks on each of the card's `sms` SMs, unless there are
     fewer tiles than that; at most MAX_TILES_PER_BLOCK tiles a block;
     splits = ceil(tiles / tiles_per_block). With one split a block owns
     every tile and writes the output itself; with more, a second launch
-    folds a workspace. A stack of `experts` matrices counts every expert's
-    strips."""
-    if min(tiles, m, b, sms, experts) < 1:
+    folds a workspace. A stack of `experts` matrices counts the strips of
+    the `live` experts that can have rows (all of them by default); a block
+    takes `rows_per_block` of the b batch rows."""
+    live = experts if live is None else live
+    if min(tiles, m, b, sms, experts, live, rows_per_block) < 1 \
+            or live > experts:
         raise ValueError(f"split_plan: tiles={tiles}, m={m}, b={b}, "
-                         f"sms={sms}, experts={experts} must be >= 1")
-    per_split = experts * -(-m // STRIP) * -(-b // ROWS)
+                         f"sms={sms}, experts={experts}, live={live}, "
+                         f"rows_per_block={rows_per_block} must be >= 1 "
+                         f"(live <= experts)")
+    per_split = live * -(-m // STRIP) * -(-b // rows_per_block)
     want = min(tiles, -(-BLOCKS_PER_SM * sms // per_split))
     tpb = min(tiles // want, MAX_TILES_PER_BLOCK)
     return tpb, -(-tiles // tpb)
@@ -205,18 +222,25 @@ def gemv_f(a, planes, scale_tiles, *, q: int, zero: int,
 
 
 def gemv_f_experts(a, planes, scale_tiles, counts=None, *, q: int,
-                   zero: int, bn: int) -> torch.Tensor:
-    """a (E, R, N) f32 padded to a multiple of bn with 0; planes (E, q, W,
-    M) int32 (each expert's leaf planes, W = ceil(n/32)); scale_tiles (E,
-    N/bn, M) f32 with unit column stride (a stride-0 view over the tiles of
-    per-channel scales is read as it is); counts (E,) int32 or None → (E,
-    R, M) f32, expert e's rows through expert e's planes, in ONE launch
-    over all experts' strips. Rows at and past counts[e] are taken as zero:
-    the kernel writes their outputs as zero, and skips a group of 4 rows
-    with none below counts[e] without reading the expert's planes."""
+                   zero: int, bn: int,
+                   live: Optional[int] = None) -> torch.Tensor:
+    """B3 over a stack of E experts in ONE launch over all experts'
+    strips: (E, R, M) f32, expert e's rows through expert e's planes.
+
+    a: (E, R, N) f32 padded to a multiple of bn with 0 (B3's block body,
+    `experts_kernel`), or (E, R, N) bf16 unpadded, read in place on the
+    tensor cores (`experts_mma_kernel`; N is bw.n). planes (E, q, W, M)
+    int32 (each expert's leaf planes, W = ceil(N/32)); scale_tiles (E,
+    tiles, M) f32 with unit column stride (a stride-0 view over the tiles
+    of per-channel scales is read as it is); counts (E,) int32 or None.
+    Rows at and past counts[e] are taken as zero: the kernel writes their
+    outputs as zero without reading them. `live` (bf16 stacks, with
+    counts): at most that many experts have rows (the caller's bound, e.g.
+    min(E, tokens · top_k)); the grid walks that many expert slots and the
+    split plan counts only their strips."""
     if not a.is_cuda:
         return ref.gemv_f_experts_ref(a, planes, scale_tiles, counts, q=q,
-                                      zero=zero, bn=bn)
+                                      zero=zero, bn=bn, live=live)
     what = "gemv_f_experts"
     if a.ndim != 3 or planes.ndim != 4 or scale_tiles.ndim != 3:
         raise ValueError(f"{what}: activations {tuple(a.shape)}, planes "
@@ -229,15 +253,18 @@ def gemv_f_experts(a, planes, scale_tiles, counts=None, *, q: int,
         raise ValueError(f"{what}: {e} experts of activations, "
                          f"{planes.shape[0]} of planes, "
                          f"{scale_tiles.shape[0]} of scales")
-    _check_inputs(what, a, planes, scale_tiles, torch.float32, q=q, bn=bn,
-                  strided_scales=True)
-    _check_gemv(what, a[0], planes[0], scale_tiles[0], q, bn)
     if counts is not None and (counts.device != a.device
                                or counts.dtype != torch.int32
                                or tuple(counts.shape) != (e,)
                                or not counts.is_contiguous()):
         raise ValueError(f"{what}: counts must be a contiguous ({e},) "
                          f"int32 tensor on {a.device}")
+    if a.dtype == torch.bfloat16:
+        return _gemv_f_experts_mma(a, planes, scale_tiles, counts, q=q,
+                                   zero=zero, bn=bn, live=live)
+    _check_inputs(what, a, planes, scale_tiles, torch.float32, q=q, bn=bn,
+                  strided_scales=True)
+    _check_gemv(what, a[0], planes[0], scale_tiles[0], q, bn)
     if e * -(-r // ROWS) > 65535:
         raise ValueError(f"{what}: {e} experts of {r} rows exceed the "
                          f"grid's 65535 row groups")
@@ -256,4 +283,51 @@ def gemv_f_experts(a, planes, scale_tiles, counts=None, *, q: int,
         None if counts is None else counts.data_ptr(), e, r, n,
         planes.shape[2], m, q, zero, bn, scale_tiles.stride(0),
         scale_tiles.stride(1), tpb, splits, _stream()), what)
+    return out
+
+
+def mma_plan(tiles: int, m: int, r: int, sms: int, experts: int,
+             live: int) -> tuple:
+    """(tiles_per_block, splits) of the bf16 stack's kernel: `split_plan`
+    over the strips of `live` expert slots, a block taking MMA_ROWS rows."""
+    return split_plan(tiles, m, r, sms, experts=experts, live=live,
+                      rows_per_block=MMA_ROWS)
+
+
+def _gemv_f_experts_mma(a, planes, scale_tiles, counts, *, q, zero, bn,
+                        live) -> torch.Tensor:
+    """`gemv_f_experts` on a bf16 (E, R, N) stack, unpadded, on the tensor
+    cores: no copy of the activations."""
+    what = "gemv_f_experts"
+    e, r, n = a.shape
+    m = planes.shape[-1]
+    _check_inputs(what, a, planes, scale_tiles, torch.bfloat16, q=q, bn=bn,
+                  strided_scales=True)
+    words, tiles = -(-n // 32), -(-n // bn)
+    if planes.shape[1:3] != (q, words):
+        raise ValueError(f"{what}: planes {tuple(planes.shape)} do not fit "
+                         f"q={q} and N={n} ({words} words)")
+    if tuple(scale_tiles.shape[1:]) != (tiles, m):
+        raise ValueError(f"{what}: scales {tuple(scale_tiles.shape)} != "
+                         f"{(e, tiles, m)}")
+    if not 0 <= zero <= MAX_ZERO_MMA or e > MAX_EXPERTS_MMA:
+        raise ValueError(f"{what}: zero={zero} outside [0, {MAX_ZERO_MMA}] "
+                         f"or {e} experts above {MAX_EXPERTS_MMA}")
+    live = e if counts is None or live is None else min(live, e)
+    if live < 1 or live * -(-r // MMA_ROWS) > 65535:
+        raise ValueError(f"{what}: live={live} expert slots of {r} rows "
+                         f"do not fit the grid")
+    tpb, splits = mma_plan(tiles, m, r, _sms(a.device), e, live)
+    out = torch.empty((e, r, m), dtype=torch.float32, device=a.device)
+    ws = torch.empty((0,) if splits == 1 else (e, splits, r, m),
+                     dtype=torch.float32, device=a.device)
+    lib = build.library("experts_mma")
+    LAUNCHES["gemv_f_experts_mma"] += 1
+    LAUNCHES["gemv_f_experts_mma_fold"] += int(splits > 1)
+    build.check(lib.gemv_f_experts_mma_launch(
+        a.data_ptr(), planes.data_ptr(), scale_tiles.data_ptr(),
+        out.data_ptr(), ws.data_ptr() if splits > 1 else None,
+        None if counts is None else counts.data_ptr(), e, r, n, words, m, q,
+        zero, bn, scale_tiles.stride(0), scale_tiles.stride(1), live, tpb,
+        splits, _stream()), what)
     return out

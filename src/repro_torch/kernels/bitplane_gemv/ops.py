@@ -79,19 +79,21 @@ def _check_impl(impl: str) -> None:
 def bitplane_gemv(a: torch.Tensor, bw: BitplaneWeights, *,
                   impl: str = "kernel", bn: Optional[int] = None,
                   bm: Optional[int] = None,
-                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  counts: Optional[torch.Tensor] = None,
+                  live: Optional[int] = None) -> torch.Tensor:
     """Float activations (…, N) × packed bit-plane weights → (…, M) f32.
 
     An expert stack — planes (E, q, W, M) — takes activations (E, R, N)
     and gives (E, R, M), expert e's rows through expert e's matrix (the
     JAX package's `jax.vmap` over the experts), in ONE launch. `counts`
     (E,) int32, stacks only: expert e's rows at and past counts[e] are
-    taken as zero (their outputs are zero)."""
+    taken as zero (their outputs are zero); `live` (with counts): at most
+    that many experts have rows."""
     _check_impl(impl)
     if bw.planes.ndim == 4:
-        return _gemv_experts(a, bw, impl, bn, bm, counts)
-    if counts is not None:
-        raise ValueError("counts apply to an expert stack only")
+        return _gemv_experts(a, bw, impl, bn, bm, counts, live)
+    if counts is not None or live is not None:
+        raise ValueError("counts and live apply to an expert stack only")
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1]).to(torch.float32)
     g = bw.scale.shape[0]
@@ -104,10 +106,12 @@ def bitplane_gemv(a: torch.Tensor, bw: BitplaneWeights, *,
     return out.reshape(*lead, bw.m)
 
 
-def _gemv_experts(a, bw, impl, bn, bm, counts) -> torch.Tensor:
-    """`bitplane_gemv` on an expert stack: pad the (E, R, N) activations
-    once; per-channel scales go to the kernel as a stride-0 view over the
-    tiles (every tile of a ceil(N/bn)·bn padding starts below N)."""
+def _gemv_experts(a, bw, impl, bn, bm, counts, live) -> torch.Tensor:
+    """`bitplane_gemv` on an expert stack. A bf16 (E, R, N) stack goes to
+    the kernel as it is (read in place, unpadded, on the tensor cores);
+    any other is cast to f32 and padded once for B3's block body.
+    Per-channel scales go to the kernel as a stride-0 view over the tiles
+    (every tile of a ceil(N/bn)·bn padding starts below N)."""
     e, q, _w, m = bw.planes.shape
     if a.ndim != 3 or a.shape[0] != e or a.shape[2] != bw.n:
         raise ValueError(f"expert stack of {e} (N={bw.n}, M={m}) matrices "
@@ -115,15 +119,19 @@ def _gemv_experts(a, bw, impl, bn, bm, counts) -> torch.Tensor:
                          f"{tuple(a.shape)}")
     g = bw.scale.shape[-2]
     bn, _bm = _pick_blocks(bw.n, m, bn, bm, bw.n // g if g > 1 else None)
-    a3 = _pad_axis(a.to(torch.float32), bn, 2).contiguous()
-    tiles = a3.shape[2] // bn
+    if a.dtype == torch.bfloat16:
+        a3 = a.contiguous()
+    else:
+        a3 = _pad_axis(a.to(torch.float32), bn, 2).contiguous()
+    tiles = -(-bw.n // bn)
     if g == 1:
         scale_t = bw.scale.expand(e, tiles, m)
     else:
-        scale_t = torch.stack([_expand_scales(bw[i], bn, a3.shape[2])
+        scale_t = torch.stack([_expand_scales(bw[i], bn, tiles * bn)
                                for i in range(e)])
     fn = kernel.gemv_f_experts if impl == "kernel" else ref.gemv_f_experts_ref
-    return fn(a3, bw.planes, scale_t, counts, q=q, zero=bw.zero, bn=bn)
+    return fn(a3, bw.planes, scale_t, counts, q=q, zero=bw.zero, bn=bn,
+              live=live)
 
 
 def bitplane_gemv_bitserial(a: torch.Tensor, bw: BitplaneWeights,

@@ -24,6 +24,8 @@ below 2^53, so they are exact, and float64 matmuls exist on both devices
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 #: calls of each plain version — a run on the card shows that the main path
@@ -127,16 +129,27 @@ def _gemv_f(a, planes, scale_tiles, *, q, zero, bn):
 
 
 def gemv_f_experts_ref(a, planes, scale_tiles, counts=None, *, q: int,
-                       zero: int, bn: int) -> torch.Tensor:
+                       zero: int, bn: int,
+                       live: Optional[int] = None) -> torch.Tensor:
     """Same contract as `kernel.gemv_f_experts`: a (E, R, N) f32 padded
-    with 0; planes (E, q, W, M) int32; scale_tiles (E, N/bn, M) f32 (any
-    strides); counts (E,) int32 or None → (E, R, M) f32: B3's plain
-    version per expert, expert e's rows at and past counts[e] taken as
-    zero. Counts one call."""
+    with 0 to a multiple of bn, or bf16 unpadded (widened to f32 and padded
+    here, as the TPU kernel widens its block); planes (E, q, W, M) int32;
+    scale_tiles (E, N/bn, M) f32 (any strides); counts (E,) int32 or None;
+    live: at most that many experts have rows (counts given) → (E, R, M)
+    f32: B3's plain version per expert, expert e's rows at and past
+    counts[e] taken as zero. Counts one call."""
     CALLS["gemv_f_experts"] += 1
+    if a.dtype == torch.bfloat16:
+        a = a.to(torch.float32)
+        pad = (-a.shape[2]) % bn
+        if pad:
+            a = torch.nn.functional.pad(a, (0, pad))
     if counts is not None:
-        live = torch.arange(a.shape[1], device=a.device) < counts[:, None]
-        a = torch.where(live[..., None], a, 0.0)
+        if live is not None and int((counts > 0).sum()) > live:
+            raise ValueError(f"gemv_f_experts: {int((counts > 0).sum())} "
+                             f"experts have rows, above live={live}")
+        rows = torch.arange(a.shape[1], device=a.device) < counts[:, None]
+        a = torch.where(rows[..., None], a, 0.0)
     return torch.stack([_gemv_f(a[e], planes[e], scale_tiles[e], q=q,
                                 zero=zero, bn=bn)
                         for e in range(a.shape[0])])

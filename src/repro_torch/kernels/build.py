@@ -44,6 +44,12 @@ SIGNATURES = {
         # q_max, tiles_per_block, splits, stream
         "gemv_group_launch": [_P, _P, _I, _I, _P] + [_I] * 5 + [_P],
     },
+    "experts_mma": {
+        # a (bf16), planes, scales, out, ws, counts or null, E, R, N,
+        # n_words, M, q, zero, bn, scale expert stride, scale tile stride,
+        # live, tiles_per_block, splits, stream
+        "gemv_f_experts_mma_launch": [_P] * 6 + [_I] * 13 + [_P],
+    },
     "decode_attention": {
         # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, s_pad, H, Hkv,
         # D, q_type, kv_type, scale, window, stream

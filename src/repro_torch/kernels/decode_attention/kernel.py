@@ -14,7 +14,9 @@ from . import ref
 #: launches of the CUDA kernel (the plain version counts in ref.CALLS)
 LAUNCHES = {"decode_attention": 0}
 
-HEAD_DIMS = (32, 64, 128, 256)     # head sizes the kernel is built for
+#: the largest head dim the kernel takes (it is built for 32, 64, 128 and
+#: 256 and takes any D up to 256, rounded up to the next built size)
+MAX_HEAD_DIM = 256
 Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -30,8 +32,9 @@ def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
     if h % hkv:
         raise ValueError(f"{what}: {h} query heads not a multiple of {hkv} "
                          f"KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} outside the kernel's limit "
+                         f"[1, {MAX_HEAD_DIM}]")
     if q.dtype not in Q_TYPES or k.dtype not in KV_TYPES \
             or v.dtype != k.dtype:
         raise ValueError(f"{what}: q {q.dtype} / k {k.dtype} / v {v.dtype} "
@@ -56,10 +59,13 @@ def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    for name, t in (("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be 16-byte aligned "
-                             f"(the kernel loads 16 bytes a thread)")
+    # a K/V row of whole 16-byte loads is read so; any other row element
+    # by element, at any alignment
+    if d * k.element_size() % 16 == 0:
+        for name, t in (("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be 16-byte aligned "
+                                 f"(the kernel loads 16 bytes a thread)")
 
 
 def decode_attention(pos, q, k, v, kv_positions, k_scale, v_scale, *,

@@ -37,14 +37,17 @@ GROUP_SIZE = 256   # tokens per dispatch group (GShard "group" dim)
 
 
 def _expert_mm(xe: torch.Tensor, w, impl=None,
-               counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+               counts: Optional[torch.Tensor] = None,
+               live: Optional[int] = None) -> torch.Tensor:
     """Per-expert matmul (Ex, R, din) × w → (Ex, R, dout).
 
     `w` is a dense (Ex, din, dout) tensor, or an E-stacked BitplaneWeights,
     whose stack runs as one bit-plane GeMV over all experts (B3's stacked
     launch on CUDA tensors). `counts` (Ex,) int32 on the device, where
     given, says that expert e's rows at and past counts[e] are zero: the
-    kernel then writes their zeros without reading them. A callable `impl`
+    kernel then writes their zeros without reading them; `live`, a host
+    int, bounds the experts with rows (the kernel's grid walks that many).
+    A callable `impl`
     standing for a backend (the serve engine's `EngineLinear`) resolves to
     that backend's kernel impl, as the JAX package reads its `.mode`; any
     other callable takes the whole stack, `impl(xe, w, None)`."""
@@ -54,7 +57,8 @@ def _expert_mm(xe: torch.Tensor, w, impl=None,
             out = impl(xe, w, None)
         else:
             from ..kernels.bitplane_gemv import ops as bp
-            out = bp.bitplane_gemv(xe, w, impl=impl, counts=counts)
+            out = bp.bitplane_gemv(xe, w, impl=impl, counts=counts,
+                                   live=live)
         return out.to(xe.dtype)
     return torch.einsum("erd,edf->erf", xe, w.to(xe.dtype))
 
@@ -138,18 +142,20 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, ffn_type: str = "glu",
                                                      ).reshape(-1, e)
     xe = buf[:rows].view(ex, g * cap, e)
     # with one group, expert e's rows past its kept count are zero: the
-    # kernel may skip them
+    # kernel may skip them; and at most min(Ex, tokens · k) experts have
+    # rows, known on the host (no sync)
     counts = (mask[0].sum(dim=0).clamp(max=cap).to(torch.int32)
               if g == 1 else None)
+    live = min(ex, gsz * k) if g == 1 else None
 
     if ffn_type == "glu":
-        up = _expert_mm(xe, p["w_up"], impl, counts)
-        gt = _expert_mm(xe, p["w_gate"], impl, counts)
+        up = _expert_mm(xe, p["w_up"], impl, counts, live)
+        gt = _expert_mm(xe, p["w_gate"], impl, counts, live)
         h = _gelu(gt.to(torch.float32)).to(x.dtype) * up
     else:
-        h = _gelu(_expert_mm(xe, p["w_up"], impl, counts)
+        h = _gelu(_expert_mm(xe, p["w_up"], impl, counts, live)
                   .to(torch.float32)).to(x.dtype)
-    ye = _expert_mm(h, p["w_down"], impl, counts)              # (Ex,GC,E)
+    ye = _expert_mm(h, p["w_down"], impl, counts, live)        # (Ex,GC,E)
 
     # combine: each token's kept experts' rows, weighted by its gates (in
     # x's dtype, as the JAX package's combine tensor), summed in f32

@@ -17,7 +17,11 @@ q/p and n, ragged M, grouped scales, llama2-7b's q/k/v and up/gate, at
 B = 1, 4 and 64: one split and several) and through the slot-major entry,
 bitwise; B5 at one split and several. For flash-decode, every head size
 and cache type, GQA, windows, ragged cache lengths, lanes with no valid
-slot and the JAX wrapper's padded slot count.
+slot and the JAX wrapper's padded slot count; head dims between the built
+sizes (16, 80, 100, 112), whose rows take whole 16-byte loads or, at 100
+for bf16 and int8 caches, element-wide ones. B3 over a bf16 expert stack
+(the tensor-core kernel) at qwen2-moe's decode-count and full-capacity
+shapes, ragged M and N, R above 8 and above 16, and counts [0, 8, 3, 0].
 """
 import pytest
 import torch
@@ -209,10 +213,18 @@ def test_decode_attention_rejects_bad_inputs(gen):
                                    torch.float32)
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
     st = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+    # every head dim up to 256 runs (16: a tiny config's); 320 is refused
+    got = dkernel.decode_attention(pos, q[..., :16].contiguous(),
+                                   k[..., :16].contiguous(),
+                                   v[..., :16].contiguous(), st, None, None,
+                                   scale=1.0, window=None)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 4, 16) and bool(torch.isfinite(got).all())
+    wide = torch.zeros((1, 64, 4, 320), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        dkernel.decode_attention(pos, q[..., :16].contiguous(),
-                                 k[..., :16].contiguous(),
-                                 v[..., :16].contiguous(), st, None, None,
+        dkernel.decode_attention(pos, torch.zeros((1, 4, 320),
+                                                  device="cuda"),
+                                 wide, wide.clone(), st, None, None,
                                  scale=1.0, window=None)
     with pytest.raises(ValueError, match="contiguous"):
         dkernel.decode_attention(pos, q, k.transpose(1, 2).contiguous()
@@ -476,3 +488,88 @@ def test_gemv_f_experts_rejects_bad_inputs(gen):
     with pytest.raises(ValueError, match="experts"):
         kernel.gemv_f_experts(x, bw.planes[:2], scale_t, q=2, zero=bw.zero,
                               bn=256)
+
+
+# head dims between the built sizes: (B, S, H, Hkv, D, window). D = 100
+# makes a K/V row of 200 (bf16) or 100 (int8) bytes, not whole 16-byte
+# loads (f32's 400 bytes are 25 of them)
+HEAD_DIM_SHAPES = [(2, 300, 8, 4, 16, None), (3, 1000, 8, 2, 80, 100),
+                   (2, 513, 4, 4, 100, None), (4, 4096, 32, 32, 112, None),
+                   (1, 77, 4, 1, 100, 16)]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window", HEAD_DIM_SHAPES)
+@pytest.mark.parametrize("q_dtype,kv", [
+    (torch.float32, torch.float32), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)])
+def test_decode_attention_at_any_head_dim(gen, b, s, h, hkv, d, window,
+                                          q_dtype, kv):
+    test_decode_attention_within_tolerance(gen, b, s, h, hkv, d, window,
+                                           q_dtype, kv)
+
+
+# bf16 stacks, (E, R, N, M, q, groups, counts): qwen2-moe's stacks at full
+# capacity and a decode step's counts; ragged M and N; R = 12 (two
+# n-tiles) and R = 40 (three 16-row chunks); an empty expert beside a full
+# one; grouped scales; q = 1, 3 and 8
+BF16_EXPERT_SHAPES = [
+    (64, 8, 2048, 1408, 4, 1, None), (64, 8, 1408, 2048, 4, 1, None),
+    (64, 8, 2048, 1408, 4, 1, "routed"), (64, 8, 1408, 2048, 4, 1, "routed"),
+    (5, 6, 300, 90, 3, 1, None), (3, 12, 1000, 130, 2, 1, [12, 0, 5]),
+    (2, 40, 2048, 256, 4, 1, [40, 17]), (4, 8, 2048, 1408, 4, 1, [0, 8, 3, 0]),
+    (3, 4, 2048, 130, 4, 4, [4, 1, 0]), (2, 8, 640, 200, 8, 1, None),
+    (1, 8, 1408, 2048, 1, 1, [3])]
+
+
+@pytest.mark.parametrize("e,r,n,m,q,g,spec", BF16_EXPERT_SHAPES)
+def test_bf16_expert_stack_on_the_tensor_cores(gen, e, r, n, m, q, g, spec):
+    """The bf16 stack goes to `experts_mma_kernel` unpadded (one launch,
+    plus a fold where the plan over the live experts splits), within rtol
+    1e-5 / atol 1e-5·max|plain| of its plain version, rows past a count
+    and experts without rows zero."""
+    bw = _expert_stack(gen, e, n, m, q, g)
+    counts = _expert_counts(gen, e, r, spec)
+    x = torch.randn((e, r, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if counts is not None:
+        rows = torch.arange(r, device="cuda") < counts[:, None]
+        x = torch.where(rows[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                        device="cuda"))
+    live = e if counts is None else min(e, 16 if spec == "routed" else e)
+    k0, c0 = dict(kernel.LAUNCHES), dict(ref.CALLS)
+    got = ops.bitplane_gemv(x, bw, counts=counts, live=live)
+    torch.cuda.synchronize()
+    assert ref.CALLS == c0
+    bn, _ = ops._pick_blocks(n, m, None, None, n // g if g > 1 else None)
+    _, splits = kernel.mma_plan(-(-n // bn), m, r,
+                                kernel._sms(torch.device("cuda")), e, live)
+    assert kernel.LAUNCHES["gemv_f_experts_mma"] == \
+        k0["gemv_f_experts_mma"] + 1
+    assert kernel.LAUNCHES["gemv_f_experts_mma_fold"] == \
+        k0["gemv_f_experts_mma_fold"] + int(splits > 1)
+    assert kernel.LAUNCHES["gemv_f_experts"] == k0["gemv_f_experts"]
+    want = ops.bitplane_gemv(x, bw, impl="reference", counts=counts)
+    tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+    if counts is not None:
+        for i, c in enumerate(counts.tolist()):
+            assert not bool(got[i, c:].any())
+    # the f32 stack of the same values through B3's block body
+    f32 = ops.bitplane_gemv(x.float(), bw, counts=counts)
+    assert bool(((got - f32).abs() <= tol).all())
+
+
+def test_bf16_expert_stack_rejects_what_the_kernel_does_not_take(gen):
+    bw = _expert_stack(gen, 3, 256, 40, 2, 1)
+    x = torch.randn((3, 4, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale_t = bw.scale.expand(3, 1, 40)
+    with pytest.raises(ValueError, match="zero"):
+        kernel.gemv_f_experts(x, bw.planes, scale_t, q=2, zero=200, bn=256)
+    with pytest.raises(ValueError, match="planes"):
+        kernel.gemv_f_experts(x[..., :200].contiguous(), bw.planes, scale_t,
+                              q=2, zero=bw.zero, bn=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.gemv_f_experts(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              bw.planes, scale_t, q=2, zero=bw.zero, bn=256)
