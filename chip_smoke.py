@@ -26,11 +26,15 @@ Phases, each printing one JSON line:
      tables above 0.01 GB), and the prefill logits must equal, bitwise,
      those of the same model on the plain versions;
   4. slice, act_bits=None: the same through B3 (and its fold);
-  5. kernels: B4 decode_attention against its plain version at llama2-7b's
-     full context (B = 4 lanes, 4096 stamped slots, 32 heads of 128) with
-     a bf16 and an int8 cache, and on small GQA, windowed ring-buffer and
-     no-valid-slot shapes, and at head dims 16 and 112 (between the
-     kernel's built sizes) on int8 and bf16 caches of 4096 slots (rtol/atol 1e-5 for a float32 output, one bf16
+  5. kernels: B4 decode_attention (split over the cache by its plan, a
+     fold launch merging the splits) against its plain version at
+     llama2-7b's full context (B = 4 lanes, 4096 stamped slots, 32 heads of
+     128) with a bf16 and an int8 cache, at the slice's own call (16–31
+     valid slots of 4096), at B = 1, at qwen2-7b's and starcoder2-3b's GQA
+     (7 and 12 query heads a KV head) with 4096 slots, on small GQA,
+     windowed ring-buffer and no-valid-slot shapes, and at head dims 16 and
+     112 (between the kernel's built sizes) and 320 (its generic body) on
+     caches of 4096 slots (rtol/atol 1e-5 for a float32 output, one bf16
      ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
      decode shapes, q2, and one grouped shape, with B3's split plan (rtol
      1e-5, atol 1e-5·max|plain|); each timed beside its plain version, its
@@ -39,8 +43,9 @@ Phases, each printing one JSON line:
      on the bf16 cache; a bf16 torch.matmul);
   6. slice, act_bits=4, int8 KV cache over 4096 slots, attention through
      B4: `Model(attn_impl="kernel")` on the engine's parameters serves the
-     same requests; B4 must run 32 times a decode step, B1 and B2 (and
-     their folds) run, no plain version, no copy of the groups' weights.
+     same requests; B4 must run 32 times a decode step (each with its fold
+     launch, the plan splitting the 4096 slots), B1 and B2 (and their
+     folds) run, no plain version, no copy of the groups' weights.
      A replay holds B4 against its plain version at every
      layer of every step on the path's own inputs; each decode step's
      logits are compared with the same model on `attn_impl="sdpa"` fed the
@@ -581,25 +586,44 @@ def _ring_stamps(pos, slots: int):
     return torch.where(st >= 0, st, torch.full_like(st, -1))
 
 
-# (name, B, S, H, Hkv, D, q/cache type, window, count per decode layer):
-# the full-context llama2-7b shapes (the slice reads the int8 one), then
-# small GQA, windowed ring-buffer and no-valid-slot shapes
+# (name, B, S, H, Hkv, D, q/cache type, stamps, window, count per decode
+# layer): the full-context llama2-7b shapes, the slice's own call (an int8
+# cache of CONTEXT slots of which each lane has stamped 16–31: the count,
+# one call a decode layer, is this row's, the call the slice makes), GQA at the full context (qwen2-7b: 28 query
+# heads over 4 KV heads; starcoder2-3b: 24 over 2), one lane, then small
+# GQA, windowed ring-buffer and no-valid-slot shapes. Stamps: "full" every
+# slot valid, "ring" a ring buffer at several positions, "one empty" lane 0
+# partly filled and lane 1 empty, "path" slots 0..pos with pos 15–30.
 DECODE_SHAPES = [
-    ("llama2-7b bf16 cache", 4, CONTEXT, 32, 32, 128, "bf16", None, 0),
-    ("llama2-7b int8 cache", 4, CONTEXT, 32, 32, 128, "int8", None, 1),
-    ("gqa Hkv=8 f32", 2, 1000, 32, 8, 128, "f32", None, 0),
-    ("ring window=1024 int8", 4, 1024, 32, 32, 128, "int8", 1024, 0),
-    ("lane without valid slot f32", 2, 512, 32, 32, 128, "f32", None, 0),
+    ("llama2-7b bf16 cache", 4, CONTEXT, 32, 32, 128, "bf16", "full", None,
+     0),
+    ("llama2-7b int8 cache", 4, CONTEXT, 32, 32, 128, "int8", "full", None,
+     0),
+    ("path: int8 cache, 16-31 valid slots", 4, CONTEXT, 32, 32, 128, "int8",
+     "path", None, 1),
+    ("llama2-7b int8 cache B=1", 1, CONTEXT, 32, 32, 128, "int8", "full",
+     None, 0),
+    ("qwen2-7b gqa int8 cache", 4, CONTEXT, 28, 4, 128, "int8", "full", None,
+     0),
+    ("qwen2-7b gqa bf16 cache", 4, CONTEXT, 28, 4, 128, "bf16", "full", None,
+     0),
+    ("starcoder2-3b gqa bf16 cache", 4, CONTEXT, 24, 2, 128, "bf16", "full",
+     None, 0),
+    ("gqa Hkv=8 f32", 2, 1000, 32, 8, 128, "f32", "full", None, 0),
+    ("ring window=1024 int8", 4, 1024, 32, 32, 128, "int8", "ring", 1024, 0),
+    ("lane without valid slot f32", 2, 512, 32, 32, 128, "f32", "one empty",
+     None, 0),
     # head dims between the built sizes: 16 (tiny configs), 112
-    # (zamba2-7b), at full context
-    ("D=16 int8 cache", 4, CONTEXT, 32, 32, 16, "int8", None, 0),
-    ("D=16 bf16 cache", 4, CONTEXT, 32, 32, 16, "bf16", None, 0),
-    ("D=112 int8 cache", 4, CONTEXT, 32, 32, 112, "int8", None, 0),
-    ("D=112 bf16 cache", 4, CONTEXT, 32, 32, 112, "bf16", None, 0),
+    # (zamba2-7b), at full context; 320, above the fast body (256)
+    ("D=16 int8 cache", 4, CONTEXT, 32, 32, 16, "int8", "full", None, 0),
+    ("D=16 bf16 cache", 4, CONTEXT, 32, 32, 16, "bf16", "full", None, 0),
+    ("D=112 int8 cache", 4, CONTEXT, 32, 32, 112, "int8", "full", None, 0),
+    ("D=112 bf16 cache", 4, CONTEXT, 32, 32, 112, "bf16", "full", None, 0),
+    ("D=320 bf16 cache", 4, CONTEXT, 32, 32, 320, "bf16", "full", None, 0),
 ]
 
 
-def _decode_inputs(gen, b, s, h, hkv, d, kind, window):
+def _decode_inputs(gen, b, s, h, hkv, d, kind, fill, window):
     import torch
     dt = torch.float32 if kind == "f32" else torch.bfloat16
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(dt)
@@ -614,18 +638,20 @@ def _decode_inputs(gen, b, s, h, hkv, d, kind, window):
     else:
         k, v = kf.to(dt), vf.to(dt)
     del kf, vf
-    if window:                      # lanes at several ring positions
+    pos = torch.full((b,), s - 1, device="cuda", dtype=torch.int32)
+    stamps = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    if fill == "ring":              # lanes at several ring positions
         pos = torch.tensor([5000, 4100, 1500, 700][:b], device="cuda",
                            dtype=torch.int32)
         stamps = _ring_stamps(pos, s)
-    else:
-        pos = torch.full((b,), s - 1, device="cuda", dtype=torch.int32)
-        stamps = torch.arange(s, device="cuda", dtype=torch.int32).repeat(
-            b, 1)
-        if kind == "f32" and b == 2 and hkv == h:
-            pos[0] = 300            # lane 0 partly filled, lane 1 empty
-            stamps[0] = torch.where(stamps[0] <= 300, stamps[0], -1)
-            stamps[1] = -1
+    elif fill == "one empty":       # lane 0 partly filled, lane 1 empty
+        pos[0] = 300
+        stamps[0] = torch.where(stamps[0] <= 300, stamps[0], -1)
+        stamps[1] = -1
+    elif fill == "path":            # a 16-token prompt and 0–14 new tokens
+        pos = torch.tensor([15, 20, 26, 30][:b], device="cuda",
+                           dtype=torch.int32)
+        stamps = torch.where(stamps <= pos[:, None], stamps, -1)
     return pos, q, k, v, stamps, ks, vs
 
 
@@ -635,9 +661,10 @@ def phase_decode_attention() -> list:
     from repro_torch.kernels.decode_attention import kernel, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    for name, b, s, h, hkv, d, kind, window, count in DECODE_SHAPES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, b, s, h, hkv, d, kind, fill, window, count in DECODE_SHAPES:
         pos, q, k, v, stamps, ks, vs = _decode_inputs(gen, b, s, h, hkv, d,
-                                                      kind, window)
+                                                      kind, fill, window)
         args = (pos, q, k, v, stamps, ks, vs)
         kw = dict(scale=d ** -0.5, window=window)
         got = kernel.decode_attention(*args, **kw)
@@ -673,9 +700,12 @@ def phase_decode_attention() -> list:
             qb, kb.transpose(1, 2), vb.transpose(1, 2), attn_mask=mask)],
             20)
         del kb, vb
+        chunk, splits = kernel.decode_plan(b, s, hkv, sms)
         rows.append(dict(shape=name, b=b, s=s, h=h, hkv=hkv, d=d,
                          cache=kind, window=window, slots_read=slots,
-                         count=count, max_abs_err=err, ms=ms,
+                         chunk=chunk, splits=splits,
+                         blocks=splits * hkv * b, count=count,
+                         max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=t_bound, bound_by=by,
                          library_ms=lib_ms))
         del args, k, v
@@ -792,6 +822,7 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
     just before the run, read just after; then the checks of the module
     docstring's phase 6."""
     import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
@@ -812,6 +843,13 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
     if seen["launches"]["decode_attention"] != want:
         raise AssertionError(f"B4 launched {seen['launches']} times, not "
                              f"{want} (32 a decode step)")
+    # and a fold after each call whose plan splits the cache
+    _, splits = dk.decode_plan(
+        B, CONTEXT, cfg.attn.num_kv_heads,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    if seen["launches"]["decode_attention_fold"] != want * (splits > 1):
+        raise AssertionError(f"B4's fold launched {seen['launches']} times, "
+                             f"not {want * (splits > 1)} ({splits} splits)")
     held_no_copy(resident, "act_bits=4, attention through B4")
     for k in ("gemv_bs", "gemv_bs_fold", "program_gemv",
               "program_gemv_fold"):
@@ -1451,6 +1489,8 @@ def main() -> int:
     launches["gemv_f"] = sf["launches"]["gemv_f"]
     launches["gemv_f_fold"] = sf["launches"]["gemv_f_fold"]
     launches["decode_attention"] = sa["launches"]["decode_attention"]
+    launches["decode_attention_fold"] = \
+        sa["launches"]["decode_attention_fold"]
     launches["quant_matmul"] = sb["launches"]["quant_matmul"]
     launches["quant_matmul_fold"] = sb["launches"]["quant_matmul_fold"]
     for k in ("gemv_f_experts_mma", "gemv_f_experts_mma_fold"):
@@ -1459,8 +1499,8 @@ def main() -> int:
     # them; `kernel_ms`/`max_abs_diff` repeat `ms`/`max_abs_err` under the
     # names PERF.md's kernel table uses, `plane_bound_ms` (bit-plane
     # kernels only) is the planes alone at the memory rate, and
-    # `fold_launches` (B1, B2, B3, B5, the stacked B3) the second launches
-    # of split calls; the stacked B3's shapes are a MoE layer's
+    # `fold_launches` (B1, B2, B3, B4, B5, the stacked B3) the second
+    # launches of split calls; the stacked B3's shapes are a MoE layer's
     kernels = []
     for kname, rs in rows.items():
         keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (

@@ -21,7 +21,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: -split-compile=0: each source's device code is optimised on every CPU,
+#: so B4's many template instantiations do not build one after another
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,9 +54,10 @@ SIGNATURES = {
         "gemv_f_experts_mma_launch": [_P] * 6 + [_I] * 13 + [_P],
     },
     "decode_attention": {
-        # pos, q, k, v, stamps, k_scale, v_scale, out, B, S, s_pad, H, Hkv,
-        # D, q_type, kv_type, scale, window, stream
-        "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+        # pos, q, k, v, stamps, k_scale, v_scale, out, ws_acc, ws_ml, B, S,
+        # s_pad, H, Hkv, D, q_type, kv_type, chunk, splits, scale, window,
+        # stream
+        "decode_attention_launch": [_P] * 10 + [_I] * 10 + [_F, _I, _P],
     },
     "quant_matmul": {
         # a, words, scales, out, ws, B, n_pad, W, M, q, zero, bn,

@@ -1,6 +1,12 @@
 """Wrapper of the flash-decode CUDA kernel B4 (`csrc/decode_attention.cu`),
 the counterpart of the JAX package's `decode_attention_pallas`.
 
+The kernel splits each lane's cache over blocks by a host-side plan
+(`decode_plan`): a block takes one range of slots of one KV head of one
+lane, for all the query heads of that KV head. With several splits each
+block writes its softmax partials into a workspace and a second launch,
+queued behind the first without a launch gap, folds them in split order.
+
 A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor goes
 to the plain version in `ref.py`. There is no other fallback.
 """
@@ -9,16 +15,57 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..bitplane_gemv.kernel import _sms, _stream
 from . import ref
 
-#: launches of the CUDA kernel (the plain version counts in ref.CALLS)
-LAUNCHES = {"decode_attention": 0}
+#: launches of the CUDA kernel (the plain version counts in ref.CALLS);
+#: `decode_attention_fold` the second launch of a call whose plan splits
+LAUNCHES = {"decode_attention": 0, "decode_attention_fold": 0}
 
-#: the largest head dim the kernel takes (it is built for 32, 64, 128 and
-#: 256 and takes any D up to 256, rounded up to the next built size)
-MAX_HEAD_DIM = 256
+#: the largest head dim on the kernel's fast body (built for 32, 64, 128
+#: and 256, any D up to 256 rounded up to the next); a larger D takes its
+#: generic body, which only has to be right
+FAST_HEAD_DIM = 256
 Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: the plan: blocks a launch aims for on each SM and slots a split takes
+#: at least (so that its K/V rows outweigh its partial), both swept on an
+#: H100 (`launch/bench_decode.py --plans`, PERF.md); slots a split takes at
+#: most (its valid-slot list in shared memory: the CUDA source's limit), in
+#: whole 32-slot ballot words
+BLOCKS_PER_SM = 4
+MIN_CHUNK = 128
+MAX_CHUNK = 1024
+CHUNK_ALIGN = 32
+
+
+def decode_plan(b: int, s: int, hkv: int, sms: int) -> tuple:
+    """(chunk, splits): each lane's S slots in `splits` ranges of `chunk`
+    slots (the last one ragged). As many splits as keep the grid of
+    splits × Hkv × B blocks within BLOCKS_PER_SM on each of the card's
+    `sms` SMs (one wave: a second, partial wave of blocks costs as much as
+    the first), unless ranges would fall below MIN_CHUNK slots; at least
+    enough that none exceeds MAX_CHUNK. Made from shapes alone: which slots
+    are valid is for the blocks to find."""
+    if min(b, s, hkv, sms) < 1:
+        raise ValueError(f"decode_plan: b={b}, s={s}, hkv={hkv}, sms={sms} "
+                         f"must be >= 1")
+    want = max(1, BLOCKS_PER_SM * sms // (b * hkv))
+    splits = max(min(want, -(-s // MIN_CHUNK)), -(-s // MAX_CHUNK))
+    chunk = -(-(-(-s // splits)) // CHUNK_ALIGN) * CHUNK_ALIGN
+    return chunk, -(-s // chunk)
+
+
+def workspace_shapes(b: int, hkv: int, splits: int, g: int, d: int
+                     ) -> tuple:
+    """Shapes of the f32 workspace a plan of `splits` takes: each split's
+    accumulator (B, Hkv, splits, g, D) and (m, l) (B, Hkv, splits, g, 2)
+    per query head; nothing with one split, whose blocks write the
+    output."""
+    if splits == 1:
+        return (0,), (0,)
+    return (b, hkv, splits, g, d), (b, hkv, splits, g, 2)
 
 
 def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
@@ -32,9 +79,8 @@ def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
     if h % hkv:
         raise ValueError(f"{what}: {h} query heads not a multiple of {hkv} "
                          f"KV heads")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} outside the kernel's limit "
-                         f"[1, {MAX_HEAD_DIM}]")
+    if d < 1:
+        raise ValueError(f"{what}: head dim {d} < 1")
     if q.dtype not in Q_TYPES or k.dtype not in KV_TYPES \
             or v.dtype != k.dtype:
         raise ValueError(f"{what}: q {q.dtype} / k {k.dtype} / v {v.dtype} "
@@ -59,9 +105,9 @@ def _check(pos, q, k, v, kv_positions, k_scale, v_scale) -> None:
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    # a K/V row of whole 16-byte loads is read so; any other row element
-    # by element, at any alignment
-    if d * k.element_size() % 16 == 0:
+    # on the fast body a K/V row of whole 16-byte loads is read so; any
+    # other row element by element, at any alignment
+    if d <= FAST_HEAD_DIM and d * k.element_size() % 16 == 0:
         for name, t in (("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be 16-byte aligned "
@@ -83,15 +129,21 @@ def decode_attention(pos, q, k, v, kv_positions, k_scale, v_scale, *,
     _check(pos, q, k, v, kv_positions, k_scale, v_scale)
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
+    chunk, splits = decode_plan(b, s, hkv, _sms(q.device))
+    acc_shape, ml_shape = workspace_shapes(b, hkv, splits, h // hkv, d)
+    ws_acc = torch.empty(acc_shape, dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty(ml_shape, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
     LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_attention_fold"] += int(splits > 1)
     build.check(lib.decode_attention_launch(
         pos.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_positions.data_ptr(),
         0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
-        b, s, ref.padded_slots(s), h, hkv, d, Q_TYPES[q.dtype],
-        KV_TYPES[k.dtype], float(scale), -1 if window is None else int(window),
-        torch.cuda.current_stream().cuda_stream), "decode_attention")
+        ws_acc.data_ptr(), ws_ml.data_ptr(), b, s, ref.padded_slots(s), h,
+        hkv, d, Q_TYPES[q.dtype], KV_TYPES[k.dtype], chunk, splits,
+        float(scale), -1 if window is None else int(window), _stream()),
+        "decode_attention")
     return out

@@ -16,10 +16,14 @@ checks that these shapes reach each). B2 through its member table (mixed
 q/p and n, ragged M, grouped scales, llama2-7b's q/k/v and up/gate, at
 B = 1, 4 and 64: one split and several) and through the slot-major entry,
 bitwise; B5 at one split and several. For flash-decode, every head size
-and cache type, GQA, windows, ragged cache lengths, lanes with no valid
-slot and the JAX wrapper's padded slot count; head dims between the built
+and cache type, GQA (down to one KV head; qwen2-7b's 7 and starcoder2-3b's
+12 query heads a KV head at 4096 slots, at B = 4 and 1), windows, ragged
+cache lengths, lanes with no valid slot and the JAX wrapper's padded slot
+count, the kv8 path's stamps (16–31 valid of 4096 slots), and a fold
+launch wherever the plan splits the cache; head dims between the built
 sizes (16, 80, 100, 112), whose rows take whole 16-byte loads or, at 100
-for bf16 and int8 caches, element-wide ones. B3 over a bf16 expert stack
+for bf16 and int8 caches, element-wide ones, and above the fast body (320,
+1000: the generic body). B3 over a bf16 expert stack
 (the tensor-core kernel) at qwen2-moe's decode-count and full-capacity
 shapes, ragged M and N, R above 8 and above 16, and counts [0, 8, 3, 0].
 """
@@ -137,10 +141,13 @@ def test_wrappers_reject_bad_inputs(gen):
                        z_w=2, bn=256)
 
 
-# (B, S, H, Hkv, D, window): ragged S, GQA down to one KV head, windows
+# (B, S, H, Hkv, D, window): ragged S, GQA down to one KV head, windows;
+# qwen2-7b's GQA (7 query heads a KV head) at B = 4 and 1, starcoder2-3b's
+# (12), each over several splits of the plan
 DECODE_SHAPES = [(3, 1000, 8, 2, 128, None), (2, 77, 4, 4, 32, 16),
                  (1, 4096, 32, 32, 128, 1024), (4, 300, 8, 1, 256, None),
-                 (2, 513, 8, 4, 64, 100)]
+                 (2, 513, 8, 4, 64, 100), (4, 4096, 28, 4, 128, None),
+                 (1, 4096, 28, 4, 128, None), (2, 2048, 24, 2, 128, None)]
 
 
 def _decode_inputs(gen, b, s, h, hkv, d, q_dtype, kv):
@@ -172,11 +179,15 @@ def test_decode_attention_within_tolerance(gen, b, s, h, hkv, d, window,
     if b > 1:
         stamps[-1] = -1
     l0 = dkernel.LAUNCHES["decode_attention"]
+    f0 = dkernel.LAUNCHES["decode_attention_fold"]
     got = dops.decode_attention(pos, q, k, v, stamps, ks, vs, window=window)
     want = dops.decode_attention(pos, q, k, v, stamps, ks, vs,
                                  window=window, impl="reference")
     torch.cuda.synchronize()
+    _, splits = dkernel.decode_plan(b, s, hkv,
+                                    kernel._sms(torch.device("cuda")))
     assert dkernel.LAUNCHES["decode_attention"] == l0 + 1
+    assert dkernel.LAUNCHES["decode_attention_fold"] == f0 + int(splits > 1)
     g, w = got.float(), want.float()
     assert bool(torch.isfinite(g).all())
     if q_dtype == torch.float32:
@@ -208,24 +219,50 @@ def test_decode_attention_empty_lane_divides_by_padded_slots(gen, kv):
     assert torch.allclose(got[1], mean, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_the_paths_stamps(gen, q_dtype):
+    """The kv8 slice's call: an int8 cache of 4096 slots of which only the
+    first 16–31 are stamped (one prefill of 16 tokens and up to 15 decode
+    steps), llama2-7b's 32 heads of 128 at B = 4: one split holds every
+    valid slot, the others none, and the fold merges them."""
+    b, s, h, d = 4, 4096, 32, 128
+    q, k, v, ks, vs = _decode_inputs(gen, b, s, h, h, d, q_dtype,
+                                     torch.int8)
+    pos = torch.tensor([15, 20, 26, 30], device="cuda", dtype=torch.int32)
+    t = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    stamps = torch.where(t <= pos[:, None], t, torch.full_like(t, -1))
+    f0 = dkernel.LAUNCHES["decode_attention_fold"]
+    got = dops.decode_attention(pos, q, k, v, stamps, ks, vs)
+    want = dops.decode_attention(pos, q, k, v, stamps, ks, vs,
+                                 impl="reference")
+    torch.cuda.synchronize()
+    assert dkernel.LAUNCHES["decode_attention_fold"] == f0 + 1
+    g, w = got.float(), want.float()
+    if q_dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * w.abs()
+    else:
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) \
+            + 1e-5 * float(w.abs().max())
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
 def test_decode_attention_rejects_bad_inputs(gen):
     q, k, v, _, _ = _decode_inputs(gen, 1, 64, 4, 4, 32, torch.float32,
                                    torch.float32)
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
     st = torch.arange(64, dtype=torch.int32, device="cuda")[None]
-    # every head dim up to 256 runs (16: a tiny config's); 320 is refused
-    got = dkernel.decode_attention(pos, q[..., :16].contiguous(),
-                                   k[..., :16].contiguous(),
-                                   v[..., :16].contiguous(), st, None, None,
-                                   scale=1.0, window=None)
-    torch.cuda.synchronize()
-    assert got.shape == (1, 4, 16) and bool(torch.isfinite(got).all())
-    wide = torch.zeros((1, 64, 4, 320), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        dkernel.decode_attention(pos, torch.zeros((1, 4, 320),
-                                                  device="cuda"),
-                                 wide, wide.clone(), st, None, None,
-                                 scale=1.0, window=None)
+    # every head dim runs: 16 (a tiny config's) on the fast body, 320 on
+    # the generic one, each against the plain version
+    for d in (16, 320):
+        qd, kd, vd, _, _ = _decode_inputs(gen, 1, 64, 4, 4, d,
+                                          torch.float32, torch.float32)
+        got = dkernel.decode_attention(pos, qd, kd, vd, st, None, None,
+                                       scale=d ** -0.5, window=None)
+        want = dref.decode_attention_ref(pos, qd, kd, vd, st, None, None,
+                                         scale=d ** -0.5, window=None)
+        torch.cuda.synchronize()
+        assert got.shape == (1, 4, d)
+        assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
     with pytest.raises(ValueError, match="contiguous"):
         dkernel.decode_attention(pos, q, k.transpose(1, 2).contiguous()
                                  .transpose(1, 2), v, st, None, None,
@@ -495,7 +532,9 @@ def test_gemv_f_experts_rejects_bad_inputs(gen):
 # loads (f32's 400 bytes are 25 of them)
 HEAD_DIM_SHAPES = [(2, 300, 8, 4, 16, None), (3, 1000, 8, 2, 80, 100),
                    (2, 513, 4, 4, 100, None), (4, 4096, 32, 32, 112, None),
-                   (1, 77, 4, 1, 100, 16)]
+                   (1, 77, 4, 1, 100, 16),
+                   # above the fast body's 256: the generic body
+                   (2, 700, 8, 4, 320, None), (2, 300, 4, 2, 1000, 100)]
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,window", HEAD_DIM_SHAPES)

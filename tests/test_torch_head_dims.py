@@ -1,10 +1,11 @@
 """B4 (flash-decode) at head dims other than the built 32, 64, 128 and
 256: the port's plain version against the JAX package's
 `decode_attention_pallas` in interpret mode at D ∈ {16, 80, 112} (tiny
-configs use 16, zamba2-7b 112), bf16 and int8 caches, rtol/atol 1e-5
+configs use 16, zamba2-7b 112) and at 320 and 512, above the kernel's fast
+body (its generic body takes them), bf16 and int8 caches, rtol/atol 1e-5
 (tests/test_decode_kernel.py's tolerance); and the wrapper's checks, which
-take every D up to 256 and refuse a larger one by name. The kernel itself
-at these dims runs on the card (tests/test_torch_cuda.py, chip_smoke.py).
+take every D ≥ 1. The kernel itself at these dims runs on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from test_torch_decode_attention import TOL, _both, _cache
 from test_torch_model import fresh_jax_caches  # noqa: F401
 
 
-@pytest.mark.parametrize("d", [16, 80, 112])
+@pytest.mark.parametrize("d", [16, 80, 112, 320, 512])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("window", [None, 100])
 def test_plain_version_matches_pallas_interpret_at_any_head_dim(rng, d, kv,
@@ -42,10 +43,17 @@ def test_wrapper_takes_every_head_dim_up_to_256(d):
                    torch.zeros((b, s), dtype=torch.int32), None, None)
 
 
-def test_wrapper_refuses_head_dims_above_256():
-    b, s, h, d = 1, 8, 2, 320
+@pytest.mark.parametrize("d", [257, 320, 512, 1000])
+def test_wrapper_takes_head_dims_above_256(d):
+    """Above the fast body's 256 the wrapper refuses nothing JAX takes:
+    its checks pass for float and int8 caches, 16-byte rows or not."""
+    b, s, h = 1, 8, 2
+    pos = torch.zeros(b, dtype=torch.int32)
+    st = torch.zeros((b, s), dtype=torch.int32)
     kv = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 320.*256"):
-        tkernel._check(torch.zeros(b, dtype=torch.int32),
-                       torch.zeros((b, h, d)), kv, kv.clone(),
-                       torch.zeros((b, s), dtype=torch.int32), None, None)
+    tkernel._check(pos, torch.zeros((b, h, d)), kv, kv.clone(), st, None,
+                   None)
+    k8 = torch.zeros((b, s, h, d), dtype=torch.int8)
+    sc = torch.ones((b, s, h))
+    tkernel._check(pos, torch.zeros((b, h, d), dtype=torch.bfloat16), k8,
+                   k8.clone(), st, sc, sc.clone())
