@@ -34,7 +34,8 @@ Phases, each printing one JSON line:
      (7 and 12 query heads a KV head) with 4096 slots, on small GQA,
      windowed ring-buffer and no-valid-slot shapes, and at head dims 16 and
      112 (between the kernel's built sizes) and 320 (its generic body) on
-     caches of 4096 slots (rtol/atol 1e-5 for a float32 output, one bf16
+     caches of 4096 slots, and at pixtral-12b's own call (GQA 32 over 8,
+     int8, 16–31 valid slots) (rtol/atol 1e-5 for a float32 output, one bf16
      ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
      decode shapes, q2, and one grouped shape, with B3's split plan (rtol
      1e-5, atol 1e-5·max|plain|); each timed beside its plain version, its
@@ -42,10 +43,11 @@ Phases, each printing one JSON line:
      a PyTorch yardstick the port never calls (scaled_dot_product_attention
      on the bf16 cache; a bf16 torch.matmul);
   6. slice, act_bits=4, int8 KV cache over 4096 slots, attention through
-     B4: `Model(attn_impl="kernel")` on the engine's parameters serves the
-     same requests; B4 must run 32 times a decode step (each with its fold
-     launch, the plan splitting the 4096 slots), B1 and B2 (and their
-     folds) run, no plain version, no copy of the groups' weights.
+     B4: `Model(attn_impl="kernel")` on the quantized parameters behind
+     `EngineLinear(MVDRAMEngine())` serves the same requests; B4 must run
+     32 times a decode step (each with its fold launch, the plan splitting
+     the 4096 slots), B1 and B2 (and their folds) run, no plain version,
+     no copy of the groups' weights.
      A replay holds B4 against its plain version at every
      layer of every step on the path's own inputs; each decode step's
      logits are compared with the same model on `attn_impl="sdpa"` fed the
@@ -63,10 +65,12 @@ Phases, each printing one JSON line:
      per stack) at qwen2-moe-a2.7b's shapes (64 experts of 2048→1408 and
      1408→2048, q4, 8 capacity rows), with every expert full and with the
      row counts of a decode step's routing (16 (token, expert) pairs of 4
-     lanes), a ragged M, one expert, an empty expert beside a full one:
+     lanes; at deepseek-v2-lite-16b's top-6, 24), a ragged M, one expert,
+     an empty expert beside a full one:
      each shape on f32 activations padded for B3's block body and on the
      same values in bf16, unpadded, on the tensor cores (the MoE path's
-     kernel, its grid over `live` expert slots: 16 at the routed shapes);
+     kernel, its grid over `live` expert slots: 16 and 24 at the routed
+     shapes);
      rtol 1e-5 / atol 1e-5·max|plain| against the plain version; timed
      beside the plain version, its bound (full capacity, and what the
      routed experts need; the bf16 kernel's operations at the bf16
@@ -87,13 +91,33 @@ Phases, each printing one JSON line:
      version on the path's own inputs and every B1 and B2 call bitwise,
      the prefill logits reported; no copy of the groups' weights;
  12. profile: `profile_decode` on the act_bits=None MoE slice;
- 13. the kernels line, then the card's name and power limit, then the
+ 13. slices, gemma2-9b at full width (42 layers, q4, the output head tied
+     to the embedding table; random weights drawn and quantized one leaf
+     at a time after qwen2-moe's are freed), act_bits=4 then None through
+     `ServeEngine`: every launch count exact (B2 on q/k/v and up/gate, B1
+     on wo and down, or B3 on all seven; no lm_head leaf), their folds
+     ran, no plain version; prefill logits bitwise (act_bits=4) or within
+     5 % of max|logit| of the plain versions'; the tied head (a bf16
+     torch.matmul against the table, then the final softcap) timed; the
+     act_bits=None slice profiled once (8 new tokens);
+ 14. slice, pixtral-12b at full width (40 layers, q4, embedding inputs:
+     seeded bf16 frames, (B, 16, 5120) for the prompt and one (B, 5120) a
+     step): phase 6's checks through `Model.prefill`/`decode_step`, B4 40
+     times a decode step on its GQA (32 query heads over 8);
+ 15. slices, deepseek-v2-lite-16b at full width (27 layers: one with a
+     dense FFN, 26 MoE with 64 experts at top-6 and two shared; MLA,
+     whose absorbed decode never runs B4), act_bits=None then 4: phase 10
+     and 11's checks, every launch count exact (78 bf16 stacked launches
+     a forward pass), the `live` bounds seen and the most experts with
+     rows in one stacked call;
+ 16. the kernels line, then the card's name and power limit, then the
      result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -455,12 +479,12 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def resident_gb(eng) -> dict:
-    """Device memory the engine holds after warm-up: its weight leaves'
-    bit planes (with scales and column sums), what B2's member tables of
-    the fused q/k/v and up/gate groups hold beyond the leaves (tile scales
-    they had to copy; B2 reads the planes in place), and all that the
-    allocator holds (embedding and KV cache included)."""
+def resident_gb(params, mvdram) -> dict:
+    """Device memory a served model holds after warm-up: its weight
+    leaves' bit planes (with scales and column sums), what the engine's B2
+    member tables of the fused q/k/v and up/gate groups hold beyond the
+    leaves (tile scales they had to copy; B2 reads the planes in place),
+    and all that the allocator holds (embedding and KV cache included)."""
     import torch
     from repro_torch.core.bitplane import BitplaneWeights
 
@@ -469,8 +493,8 @@ def resident_gb(eng) -> dict:
             return [x for v in tree.values() for x in leaves(v)]
         return [tree] if isinstance(tree, BitplaneWeights) else []
     planes = sum(nbytes(w.planes, w.scale, w.col_sum)
-                 for w in leaves(eng.params))
-    packed = sum(t.owned_bytes for _, t in eng.mvdram._packed.values())
+                 for w in leaves(params))
+    packed = sum(t.owned_bytes for _, t in mvdram._packed.values())
     return {"leaf_planes_gb": planes / 1e9, "packed_groups_gb": packed / 1e9,
             "allocated_gb": torch.cuda.memory_allocated() / 1e9}
 
@@ -484,20 +508,59 @@ def held_no_copy(resident: dict, what: str) -> None:
                              f"copies beside the leaves")
 
 
-def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
+def launches_per_pass(cfg, act_bits) -> dict:
+    """Launches of each GeMV kernel in one forward pass of `cfg` served
+    through the kernel backend (folds apart): at act_bits, B2 once per
+    fused group (GQA's q/k/v, a GLU's up/gate, the shared experts'
+    up/gate) and B1 on every other bit-plane linear (MLA's wq, w_dkv and
+    wo each, the downs, lm_head unless the head is tied to the embedding);
+    with float activations B3 on each of those leaves; the bf16 stacked B3
+    on each expert stack."""
+    from repro_torch.models.model import stack_plan
+    plan = stack_plan(cfg)
+    moe_layers = plan.repeats * len(cfg.pattern) if cfg.moe else 0
+    dense_layers = cfg.num_layers - moe_layers
+    groups = members = singles = 0
+    if cfg.mla is not None:
+        singles += 3 * cfg.num_layers
+    else:
+        groups, members, singles = (cfg.num_layers, 3 * cfg.num_layers,
+                                    cfg.num_layers)
+    if cfg.ffn_type == "glu":
+        groups, members = groups + dense_layers, members + 2 * dense_layers
+        singles += dense_layers
+    else:
+        singles += 2 * dense_layers
+    if cfg.moe and (cfg.moe.num_shared or cfg.moe.shared_d_ff):
+        groups, members = groups + moe_layers, members + 2 * moe_layers
+        singles += moe_layers
+    singles += 0 if cfg.tie_embeddings else 1
+    stacks = (3 if cfg.ffn_type == "glu" else 2) * moe_layers
+    return {"program_gemv": groups if act_bits else 0,
+            "gemv_bs": singles if act_bits else 0,
+            "gemv_f": 0 if act_bits else members + singles,
+            "gemv_f_experts_mma": stacks, "gemv_f_experts": 0}
+
+
+def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
     """Serve the requests through the kernel backend, with the counts
-    zeroed just before and read just after; then hold the prefill logits
-    against the same model on the plain versions."""
+    zeroed just before and read just after: (engine, tokens, the phase
+    line's fields). Fails if a kernel of `must_run` never launched, a
+    count differs from `want`, a plain version ran, the engine holds a
+    copy of the groups' weights or the tokens are wrong."""
     import torch
     from repro_torch.serve.engine import ServeEngine
+    what = f"{cfg.name} act_bits={act_bits}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
                       batch_slots=B, quantized=True, act_bits=act_bits,
                       device="cuda")
     eng.generate(prompts[:, :4], max_new=2)      # pack B2 groups, warm up
     torch.cuda.synchronize()
-    resident = resident_gb(eng)
-    if act_bits:
-        held_no_copy(resident, f"act_bits={act_bits}")
+    setup = time.perf_counter() - t0
+    resident = resident_gb(eng.params, eng.mvdram)
+    held_no_copy(resident, what)
     reset_counts()
     t0 = time.perf_counter()
     toks = eng.generate(prompts, max_new=NEW)
@@ -506,17 +569,49 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
     seen = counts()
     for k in must_run:
         if seen["launches"][k] <= 0:
-            raise AssertionError(f"act_bits={act_bits}: {k} never launched "
-                                 f"on the slice ({seen})")
+            raise AssertionError(f"{what}: {k} never launched ({seen})")
+    for k, v in (want or {}).items():
+        if seen["launches"][k] != v:
+            raise AssertionError(f"{what}: {k} launched "
+                                 f"{seen['launches'][k]} times, not {v} "
+                                 f"({seen})")
     if any(seen["plain"].values()):
-        raise AssertionError(f"act_bits={act_bits}: a plain version ran on "
-                             f"the card ({seen})")
+        raise AssertionError(f"{what}: a plain version ran on the card "
+                             f"({seen})")
     if tuple(toks.shape) != (B, PROMPT + NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
     if not torch.equal(toks[:, :PROMPT], prompts):
-        raise AssertionError("prompt tokens not echoed")
+        raise AssertionError(f"{what}: prompt tokens not echoed")
+    return eng, toks, {
+        "tokens_shape": list(toks.shape), "seconds": dt,
+        "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
+        "setup_seconds": setup,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **seen,
+        "resident": resident}
 
+
+def tied_head(eng) -> dict:
+    """The tied head of a decode step (`Model._logits`: B rows against the
+    whole embedding table in the model's dtype, then the final softcap),
+    timed on the card beside the table's bytes at the memory rate."""
+    import torch
+    table = eng.params["embed"]
+    x = torch.randn((B, 1, table.shape[1]), device="cuda",
+                    dtype=table.dtype)
+    ms = graph_ms([lambda: eng.model._logits(eng.params, x)], 20)
+    return {"tied_head_ms": ms, "table_gb": nbytes(table) / 1e9,
+            "table_bound_ms": nbytes(table) / HBM_BYTES_S * 1e3}
+
+
+def phase_slice(cfg, qparams, prompts, act_bits, must_run, want=None,
+                name=None) -> dict:
+    """Serve the requests (`served`); then hold the prefill logits against
+    the same model on the plain versions: bitwise at act_bits, within 5 %
+    of max|logit| with float activations. A tied head is timed too."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    eng, _, out = served(cfg, qparams, prompts, act_bits, must_run, want)
     with torch.no_grad():
         got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
                                    eng.max_seq)
@@ -524,29 +619,30 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run) -> dict:
                               batch_slots=B, quantized=True,
                               act_bits=act_bits, impl="reference",
                               device="cuda")
-        want, _ = ref_eng.model.prefill(ref_eng.params,
-                                        {"tokens": prompts}, eng.max_seq)
+        want_l, _ = ref_eng.model.prefill(ref_eng.params,
+                                          {"tokens": prompts}, eng.max_seq)
+        del ref_eng
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite logits")
-    err = float((got - want).abs().max())
-    if act_bits and not torch.equal(got, want):
+    err = float((got - want_l).abs().max())
+    if act_bits and not torch.equal(got, want_l):
         raise AssertionError(f"act_bits={act_bits}: kernel logits != plain "
                              f"logits (max|Δ| {err})")
     # B3 sums in another order than its plain version, and bf16
-    # activations between the 32 layers amplify that, so the float path is
+    # activations between the layers amplify that, so the float path is
     # held to agreement of the logits at bf16 resolution (a wrong kernel
     # misses by the logits' own size)
-    if not act_bits:
-        scale = float(want.abs().max())
-        if err > 0.05 * scale:
-            raise AssertionError(f"act_bits=None: logits differ from the "
-                                 f"plain versions' (max|Δ| {err}, "
-                                 f"max|logit| {scale})")
-    out = {"phase": f"slice_act_bits_{act_bits}", "tokens_shape":
-           list(toks.shape), "seconds": dt,
-           "tokens_per_s": B * NEW / dt, **seen, "resident": resident,
-           "prefill_logits_max_abs_err_vs_plain": err}
+    scale = float(want_l.abs().max())
+    if not act_bits and err > LOGIT_RTOL * scale:
+        raise AssertionError(f"act_bits=None: logits differ from the "
+                             f"plain versions' (max|Δ| {err}, "
+                             f"max|logit| {scale})")
+    out = {"phase": name or f"slice_act_bits_{act_bits}", **out,
+           "prefill_logits_max_abs_err_vs_plain": err,
+           "max_abs_logit": scale}
+    if cfg.tie_embeddings:
+        out |= tied_head(eng)
     emit(out)
     return out
 
@@ -589,11 +685,13 @@ def _ring_stamps(pos, slots: int):
 # (name, B, S, H, Hkv, D, q/cache type, stamps, window, count per decode
 # layer): the full-context llama2-7b shapes, the slice's own call (an int8
 # cache of CONTEXT slots of which each lane has stamped 16–31: the count,
-# one call a decode layer, is this row's, the call the slice makes), GQA at the full context (qwen2-7b: 28 query
-# heads over 4 KV heads; starcoder2-3b: 24 over 2), one lane, then small
-# GQA, windowed ring-buffer and no-valid-slot shapes. Stamps: "full" every
-# slot valid, "ring" a ring buffer at several positions, "one empty" lane 0
-# partly filled and lane 1 empty, "path" slots 0..pos with pos 15–30.
+# one call a decode layer, is this row's, the call the slice makes) and
+# pixtral-12b's (GQA 32 over 8), GQA at the full context (qwen2-7b: 28
+# query heads over 4 KV heads; starcoder2-3b: 24 over 2), one lane, then
+# small GQA, windowed ring-buffer and no-valid-slot shapes. Stamps: "full"
+# every slot valid, "ring" a ring buffer at several positions, "one empty"
+# lane 0 partly filled and lane 1 empty, "path" slots 0..pos with pos
+# 15–30.
 DECODE_SHAPES = [
     ("llama2-7b bf16 cache", 4, CONTEXT, 32, 32, 128, "bf16", "full", None,
      0),
@@ -601,6 +699,8 @@ DECODE_SHAPES = [
      0),
     ("path: int8 cache, 16-31 valid slots", 4, CONTEXT, 32, 32, 128, "int8",
      "path", None, 1),
+    ("pixtral-12b path: gqa 32/8, int8, 16-31 valid slots", 4, CONTEXT, 32,
+     8, 128, "int8", "path", None, 0),
     ("llama2-7b int8 cache B=1", 1, CONTEXT, 32, 32, 128, "int8", "full",
      None, 0),
     ("qwen2-7b gqa int8 cache", 4, CONTEXT, 28, 4, 128, "int8", "full", None,
@@ -786,15 +886,17 @@ def phase_quant_matmul(weight_bits: int) -> list:
 # phase 6: B4 on the decode path, the int8 cache at full context
 # ---------------------------------------------------------------------------
 
-def teacher_forced(model, params, prompts, toks) -> list:
-    """The logits of every decode step of `model` fed the tokens `toks`
-    after the prompts."""
+def teacher_forced(model, params, inputs) -> list:
+    """The logits of every decode step of `model` fed `inputs` (B, S)
+    tokens or (B, S, E) frame embeddings: the first PROMPT as the prompt,
+    then one a step up to the last but one."""
     import torch
+    key = "embeddings" if model.cfg.input_mode == "embeddings" else "tokens"
     steps = []
     with torch.no_grad():
-        _, cache = model.prefill(params, {"tokens": prompts}, CONTEXT)
-        for t in range(PROMPT, toks.shape[1] - 1):
-            logits, cache = model.decode_step(params, cache, toks[:, t], t)
+        _, cache = model.prefill(params, {key: inputs[:, :PROMPT]}, CONTEXT)
+        for t in range(PROMPT, inputs.shape[1] - 1):
+            logits, cache = model.decode_step(params, cache, inputs[:, t], t)
             steps.append(logits)
     return steps
 
@@ -816,33 +918,42 @@ def greedy(model, params, prompts, new: int):
     return torch.cat(toks, dim=1), steps
 
 
-def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
-    """act_bits=4 with an int8 KV cache of CONTEXT slots: the engine's
-    parameters and linears, decode attention through B4. Counts zeroed
-    just before the run, read just after; then the checks of the module
-    docstring's phase 6."""
+def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
+    """act_bits=4 with an int8 KV cache of CONTEXT slots: `Model` on the
+    quantized parameters behind `EngineLinear(MVDRAMEngine())`, decode
+    attention through B4. `inputs` are the prompts (B, PROMPT), then
+    decoded greedily, or for a stubbed frontend frames (B, PROMPT + NEW, E)
+    fed one a step. Counts zeroed just before the run, read just after;
+    then the checks of the module docstring's phase 6."""
     import torch
+    from repro_torch.core.engine import EngineLinear, MVDRAMEngine
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.models.model import Model
-    from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(cfg, qparams, max_seq=CONTEXT, batch_slots=B,
-                      quantized=True, act_bits=4, kv_bits=8, device="cuda")
-    kern = Model(cfg, act_bits=4, impl=eng.model.impl, kv_bits=8,
-                 attn_impl="kernel")
-    greedy(kern, eng.params, prompts[:, :4], 2)        # warm up
+    embeds = cfg.input_mode == "embeddings"
+    mvdram = MVDRAMEngine()
+    impl = EngineLinear(mvdram)
+    kern = Model(cfg, act_bits=4, impl=impl, kv_bits=8, attn_impl="kernel")
+
+    def run(new: int):
+        """(the inputs fed, every decode step's logits) of `new` passes."""
+        if embeds:
+            x = inputs[:, :PROMPT + new]
+            return x, teacher_forced(kern, qparams, x)
+        return greedy(kern, qparams, inputs[:, :PROMPT], new)
+    run(2)                                            # warm up
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    toks, steps = greedy(kern, eng.params, prompts, NEW)
+    toks, steps = run(NEW)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = counts()
-    resident = resident_gb(eng)
+    resident = resident_gb(qparams, mvdram)
     want = cfg.num_layers * (NEW - 1)
     if seen["launches"]["decode_attention"] != want:
         raise AssertionError(f"B4 launched {seen['launches']} times, not "
-                             f"{want} (32 a decode step)")
+                             f"{want} ({cfg.num_layers} a decode step)")
     # and a fold after each call whose plan splits the cache
     _, splits = dk.decode_plan(
         B, CONTEXT, cfg.attn.num_kv_heads,
@@ -850,14 +961,14 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
     if seen["launches"]["decode_attention_fold"] != want * (splits > 1):
         raise AssertionError(f"B4's fold launched {seen['launches']} times, "
                              f"not {want * (splits > 1)} ({splits} splits)")
-    held_no_copy(resident, "act_bits=4, attention through B4")
+    held_no_copy(resident, f"{cfg.name} act_bits=4, attention through B4")
     for k in ("gemv_bs", "gemv_bs_fold", "program_gemv",
               "program_gemv_fold"):
         if seen["launches"][k] <= 0:
             raise AssertionError(f"{k} never launched ({seen})")
     if any(seen["plain"].values()):
         raise AssertionError(f"a plain version ran on the card ({seen})")
-    if not torch.equal(toks[:, :PROMPT], prompts):
+    if not embeds and not torch.equal(toks[:, :PROMPT], inputs):
         raise AssertionError("prompt tokens not echoed")
     # B4 against its plain version at every layer of every step, on the
     # path's own inputs (a replay, after the counts were read)
@@ -871,11 +982,14 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
 
     dops.decode_attention = checked
     try:
-        teacher_forced(kern, eng.params, prompts, toks)
+        teacher_forced(kern, qparams, toks)
     finally:
         dops.decode_attention = real
+    if len(held) != want:
+        raise AssertionError(f"{len(held)} B4 calls held on the replay, "
+                             f"not {want}")
     # logits against the same model on attn_impl="sdpa" (the cache widened
-    # to bf16 where B4 widens it to f32), fed the same tokens. With 4-bit
+    # to bf16 where B4 widens it to f32), fed the same inputs. With 4-bit
     # activations they are reported only: the quantizer's absmax tie turns
     # any last-bit difference into a different code, and a one-ulp change of
     # a few cache entries moves these logits by a third of their size
@@ -884,25 +998,25 @@ def phase_attn_kernel_slice(cfg, qparams, prompts) -> dict:
     spread = {}
     for ab in (4, None):
         got = steps if ab == 4 else teacher_forced(
-            Model(cfg, act_bits=None, impl=eng.model.impl, kv_bits=8,
-                  attn_impl="kernel"), eng.params, prompts, toks)
-        want = teacher_forced(Model(cfg, act_bits=ab, impl=eng.model.impl,
-                                    kv_bits=8), eng.params, prompts, toks)
+            Model(cfg, act_bits=None, impl=impl, kv_bits=8,
+                  attn_impl="kernel"), qparams, toks)
+        want_l = teacher_forced(Model(cfg, act_bits=ab, impl=impl,
+                                      kv_bits=8), qparams, toks)
         if not all(bool(torch.isfinite(g).all()) for g in got):
             raise AssertionError(f"act_bits={ab}: non-finite logits")
         spread[ab] = {
             "max_abs_err": [float((g - w).abs().max())
-                            for g, w in zip(got, want)],
-            "max_abs_logit": max(float(w.abs().max()) for w in want)}
+                            for g, w in zip(got, want_l)],
+            "max_abs_logit": max(float(w.abs().max()) for w in want_l)}
     torch.cuda.synchronize()
     sf = spread[None]
     if max(sf["max_abs_err"]) > LOGIT_RTOL * sf["max_abs_logit"]:
         raise AssertionError(f"act_bits=None: B4 decode logits differ from "
                              f"sdpa's ({sf})")
-    out = {"phase": "slice_act_bits_4_kv8_attn_kernel",
-           "tokens_shape": list(toks.shape), "seconds": dt,
-           "tokens_per_s": B * NEW / dt, **seen, "resident": resident,
-           "kv_slots": CONTEXT,
+    out = {"phase": name, "inputs": "embeddings" if embeds else "tokens",
+           "inputs_shape": list(toks.shape), "seconds": dt,
+           "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
+           **seen, "resident": resident, "kv_slots": CONTEXT,
            "b4_vs_plain_on_path": {"calls": len(held),
                                    "max_abs_err": max(held)},
            "decode_logits_vs_sdpa_act_bits_4": spread[4],
@@ -1033,12 +1147,16 @@ def phase_baseline_slice(cfg, prompts) -> dict:
 # ---------------------------------------------------------------------------
 
 # (name, E, R, n, m, q, counts, calls per decode layer). The decode path
-# gives each stack the row counts of its routing: 4 lanes' top-4 picks,
-# 16 (token, expert) pairs, into 8 capacity rows an expert ("routed"); the
-# full-capacity rows read every expert's planes
+# gives each stack the row counts of its routing, 4 lanes' top-k picks into
+# 8 capacity rows an expert (counts k: qwen2-moe's 4, 16 (token, expert)
+# pairs; deepseek-v2-lite's 6, 24 pairs); the full-capacity rows read
+# every expert's planes
 EXPERT_SHAPES = [
-    ("up/gate 2048→1408, routed", 64, 8, 2048, 1408, 4, "routed", 2),
-    ("down 1408→2048, routed", 64, 8, 1408, 2048, 4, "routed", 1),
+    ("up/gate 2048→1408, routed", 64, 8, 2048, 1408, 4, 4, 2),
+    ("down 1408→2048, routed", 64, 8, 1408, 2048, 4, 4, 1),
+    ("deepseek up/gate 2048→1408, routed top-6", 64, 8, 2048, 1408, 4, 6,
+     0),
+    ("deepseek down 1408→2048, routed top-6", 64, 8, 1408, 2048, 4, 6, 0),
     ("up/gate 2048→1408, full", 64, 8, 2048, 1408, 4, None, 0),
     ("down 1408→2048, full", 64, 8, 1408, 2048, 4, None, 0),
     ("ragged M 300→90", 5, 6, 300, 90, 3, None, 0),
@@ -1095,8 +1213,9 @@ def phase_expert_kernels() -> tuple:
     rows, rows16 = [], []
     for name, e, r, n, m, q, spec, count in EXPERT_SHAPES:
         bw = _expert_stack(e, n, m, q, gen)
-        counts = (None if spec is None else _routed_counts(e, gen)
-                  if spec == "routed" else
+        routed = isinstance(spec, int)
+        counts = (None if spec is None else _routed_counts(e, gen, k=spec)
+                  if routed else
                   torch.tensor(spec, dtype=torch.int32, device="cuda"))
         x = torch.randn((e, r, n), generator=gen, device="cuda")
         live_rows = r * e
@@ -1145,10 +1264,10 @@ def phase_expert_kernels() -> tuple:
             library_ms=lib_ms, tiles_per_block=plan[0], splits=plan[1]))
 
         # the same values in bf16, unpadded: the tensor-core kernel over
-        # `live` expert slots (the MoE path's bound: 4 lanes × top-4)
+        # `live` expert slots (the MoE path's bound: 4 lanes × top-k)
         tiles = -(-n // bn)
         s16 = bw.scale.expand(e, tiles, m)
-        slots = min(e, B * 4) if spec == "routed" else e
+        slots = min(e, B * spec) if routed else e
         kw16 = dict(kw, live=slots)
         got = kernel.gemv_f_experts(xb, bw.planes, s16, counts, **kw16)
         want = ref.gemv_f_experts_ref(xb, bw.planes, s16, counts, **kw16)
@@ -1187,32 +1306,49 @@ def phase_expert_kernels() -> tuple:
 # phases 10-12: qwen2-moe-a2.7b at full width
 # ---------------------------------------------------------------------------
 
-def phase_moe_model():
-    """The MoE configuration's serving parameters, drawn and quantized one
-    leaf (and one layer of a stacked leaf) at a time: the float model
-    (60.6 GB) never lies on the card."""
+def phase_zoo_model(arch: str):
+    """A configuration's serving parameters at full width, drawn and
+    quantized one leaf (and one layer of a stacked leaf) at a time: the
+    float model (qwen2-moe-a2.7b's 60.6 GB, deepseek-v2-lite-16b's 62.8 GB)
+    never lies on the card. Returns (config, parameters, the requests'
+    prompts: tokens, or frames (B, PROMPT + NEW, E) in the model's dtype
+    for a stubbed frontend)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models.model import param_defs
+    from repro_torch.models.model import param_defs, stack_plan
     from repro_torch.serve.quantize import init_quantized_params
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     qparams = init_quantized_params(param_defs(cfg), cfg.weight_bits, gen,
                                     "cuda")
     torch.cuda.synchronize()
-    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
-                            device="cuda")
-    emit({"phase": "model", "config": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
-          "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
-          "shared_d_ff": cfg.moe.num_shared * cfg.moe.d_expert,
-          "vocab": cfg.vocab_size, "weight_bits": cfg.weight_bits,
-          "dtype": cfg.dtype, "depth_cut": None,
-          "setup_seconds": time.perf_counter() - t0,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    if cfg.input_mode == "embeddings":
+        prompts = torch.randn((B, PROMPT + NEW, cfg.d_model), generator=gen,
+                              device="cuda").to(getattr(torch, cfg.dtype))
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                                generator=gen, device="cuda")
+    a = cfg.attn
+    line = {"phase": "model", "config": cfg.name, "layers": cfg.num_layers,
+            "first_dense": stack_plan(cfg).first, "d_model": cfg.d_model,
+            "d_ff": cfg.d_ff, "heads": a.num_heads, "kv_heads": a.num_kv_heads,
+            "head_dim": a.head_dim, "vocab": cfg.vocab_size,
+            "tied_head": cfg.tie_embeddings, "inputs": cfg.input_mode,
+            "weight_bits": cfg.weight_bits, "dtype": cfg.dtype,
+            "depth_cut": None, "setup_seconds": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    if cfg.moe:
+        line |= {"experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                 "d_expert": cfg.moe.d_expert,
+                 "shared_d_ff": cfg.moe.shared_d_ff
+                 or cfg.moe.num_shared * cfg.moe.d_expert,
+                 "first_dense_d_ff": cfg.moe.first_dense_d_ff}
+    if cfg.mla:
+        line["mla"] = dataclasses.asdict(cfg.mla)
+    emit(line)
     return cfg, qparams, prompts
 
 
@@ -1271,17 +1407,26 @@ class ForcedRoutes:
 def held_on_path(eng, prompts) -> dict:
     """Replay the requests with every stacked B3 call held against its
     plain version on the same inputs (rtol/atol 1e-5), and every B1 and B2
-    call bitwise (after the counted run)."""
+    call bitwise (after the counted run). Also, for each `live` bound the
+    stacked calls passed (the experts a call can route: min(E, tokens·k)),
+    its calls and the most experts that had rows in one."""
     import torch
     from repro_torch.kernels.bitplane_gemv import kernel, program, ref
     held = {"gemv_f_experts": [], "gemv_bs": [], "program_gemv": []}
     real = (kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv)
+    live: dict = {}
 
     def experts(a, planes, scale_tiles, counts=None, **kw):
         got = real[0](a, planes, scale_tiles, counts, **kw)
         want = ref.gemv_f_experts_ref(a, planes, scale_tiles, counts, **kw)
         held["gemv_f_experts"].append(
             _held_b3("gemv_f_experts on the path", got, want, counts))
+        busy = a.shape[0] if counts is None else int((counts > 0).sum())
+        seen = live.setdefault(str(kw.get("live")), {
+            "calls": 0, "experts_with_rows_max": 0})
+        seen["calls"] += 1
+        seen["experts_with_rows_max"] = max(seen["experts_with_rows_max"],
+                                            busy)
         return got
 
     def bitwise(name, got, want):
@@ -1305,57 +1450,18 @@ def held_on_path(eng, prompts) -> dict:
         eng.generate(prompts, max_new=NEW)
     finally:
         kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = real
-    return {k: {"calls": len(v), "max_abs_err": max(v, default=None)}
-            for k, v in held.items()}
+    return {**{k: {"calls": len(v), "max_abs_err": max(v, default=None)}
+               for k, v in held.items()}, "live": live}
 
 
-def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
-    """Serve the requests, counts zeroed just before and read just after;
-    then the checks of the module docstring's phase 10 or 11."""
+def phase_moe_slice(cfg, qparams, prompts, act_bits, tag: str) -> dict:
+    """Serve the requests (`served`, every launch count exact); then the
+    checks of the module docstring's phase 10 or 11."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     what = f"{cfg.name} act_bits={act_bits}"
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
-                      batch_slots=B, quantized=True, act_bits=act_bits,
-                      device="cuda")
-    eng.generate(prompts[:, :4], max_new=2)       # pack B2 groups, warm up
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    resident = resident_gb(eng)
-    held_no_copy(resident, what)
-    reset_counts()
-    t0 = time.perf_counter()
-    toks = eng.generate(prompts, max_new=NEW)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    seen = counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    # a forward pass: 3 stacks a layer; attention's 4 linears, the shared
-    # FFN's 3 and lm_head through B1/B2 or B3
-    layers, passes = cfg.num_layers, NEW
-    want = {"gemv_f_experts_mma": 3 * layers * passes, "gemv_f_experts": 0}
-    if act_bits:
-        want |= {"gemv_f": 0, "program_gemv": 2 * layers * passes,
-                 "gemv_bs": (2 * layers + 1) * passes}
-    else:
-        want |= {"gemv_f": (7 * layers + 1) * passes, "gemv_bs": 0,
-                 "program_gemv": 0}
-    for k, v in want.items():
-        if seen["launches"][k] != v:
-            raise AssertionError(f"{what}: {k} launched "
-                                 f"{seen['launches'][k]} times, not {v} "
-                                 f"({seen})")
-    if any(seen["plain"].values()):
-        raise AssertionError(f"{what}: a plain version ran on the card "
-                             f"({seen})")
-    if tuple(toks.shape) != (B, PROMPT + NEW) or \
-            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
-    if not torch.equal(toks[:, :PROMPT], prompts):
-        raise AssertionError(f"{what}: prompt tokens not echoed")
-
+    want = {k: v * NEW for k, v in launches_per_pass(cfg, act_bits).items()}
+    eng, _, fields = served(cfg, qparams, prompts, act_bits, want=want)
     with torch.no_grad():
         with RouteLog() as k_log:
             got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
@@ -1380,11 +1486,7 @@ def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
     err_same = float((got - same_l).abs().max())
     flips = sum(int((a != b).any(-1).sum())
                 for a, b in zip(k_log.sets, p_log.sets))
-    out = {"phase": f"slice_qwen2_moe_act_bits_{act_bits}",
-           "tokens_shape": list(toks.shape), "seconds": dt,
-           "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
-           "setup_seconds": setup, "peak_mem_gb": peak, **seen,
-           "resident": resident,
+    out = {"phase": f"slice_{tag}_act_bits_{act_bits}", **fields,
            "prefill_logits_max_abs_err_vs_plain": err,
            "max_abs_logit": scale,
            "routed_token_layers": sum(int(a.shape[0] * a.shape[1])
@@ -1414,12 +1516,14 @@ def phase_moe_slice(cfg, qparams, prompts, act_bits) -> dict:
     return out
 
 
-def phase_moe_profile(cfg, qparams) -> dict:
+def phase_model_profile(cfg, qparams, act_bits=None, tokens=NEW) -> dict:
+    """`profile_decode` on a full-width model's slice: busy share and top
+    kernels."""
     import torch
     from repro_torch.launch.profile_decode import profile
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    run = profile(cfg, qparams, act_bits=None, batch=B, prompt_len=PROMPT,
-                  tokens=NEW, gen=gen)
+    run = profile(cfg, qparams, act_bits=act_bits, batch=B,
+                  prompt_len=PROMPT, tokens=tokens, gen=gen)
     if not run["top_kernels"] or run["device_kernel_s"] <= 0:
         raise AssertionError(f"profile of {cfg.name} saw no device time")
     emit(run)
@@ -1472,7 +1576,8 @@ def main() -> int:
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
     rows["decode_attention"] = phase_decode_attention()
     rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
-    sa = phase_attn_kernel_slice(cfg, qparams, prompts)
+    sa = phase_attn_kernel_slice(cfg, qparams, prompts,
+                                 "slice_act_bits_4_kv8_attn_kernel")
     phase_profile(cfg, qparams)
     del qparams                       # the baseline needs the float weights
     torch.cuda.empty_cache()
@@ -1480,10 +1585,38 @@ def main() -> int:
     torch.cuda.empty_cache()          # llama2-7b's weights are all freed
 
     _, rows["gemv_f_experts_mma"] = phase_expert_kernels()
-    moe_cfg, moe_params, moe_prompts = phase_moe_model()
-    smf = phase_moe_slice(moe_cfg, moe_params, moe_prompts, None)
-    phase_moe_slice(moe_cfg, moe_params, moe_prompts, 4)
-    phase_moe_profile(moe_cfg, moe_params)
+    moe_cfg, moe_params, moe_prompts = phase_zoo_model(MOE_ARCH)
+    smf = phase_moe_slice(moe_cfg, moe_params, moe_prompts, None,
+                          "qwen2_moe")
+    phase_moe_slice(moe_cfg, moe_params, moe_prompts, 4, "qwen2_moe")
+    phase_model_profile(moe_cfg, moe_params)
+    del moe_params
+    torch.cuda.empty_cache()
+
+    # the rest of the attention zoo at full width, each model's weights
+    # freed before the next is drawn
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("gemma2-9b")
+    for ab, folds in ((4, ("gemv_bs_fold", "program_gemv_fold")),
+                      (None, ("gemv_f_fold",))):
+        phase_slice(zoo, zoo_params, zoo_prompts, ab, folds,
+                    {k: v * NEW for k, v in
+                     launches_per_pass(zoo, ab).items()},
+                    name=f"slice_gemma2_9b_act_bits_{ab}")
+    # one profile (8 new tokens): the profiler's event processing, not the
+    # run, takes most of a profile's time
+    phase_model_profile(zoo, zoo_params, None, NEW // 2)
+    del zoo_params
+    torch.cuda.empty_cache()
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("pixtral-12b")
+    phase_attn_kernel_slice(zoo, zoo_params, zoo_prompts,
+                            "slice_pixtral_12b_act_bits_4_kv8_attn_kernel")
+    del zoo_params, zoo_prompts
+    torch.cuda.empty_cache()
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("deepseek-v2-lite-16b")
+    for ab in (None, 4):
+        phase_moe_slice(zoo, zoo_params, zoo_prompts, ab, "deepseek_v2")
+    del zoo_params
+    torch.cuda.empty_cache()
 
     launches = {**s4["launches"]}
     launches["gemv_f"] = sf["launches"]["gemv_f"]

@@ -1,28 +1,38 @@
-"""Architecture registry of the port: the paper's llama2-7b, the dense
-qwen2-7b and starcoder2-3b, and the mixture-of-experts qwen2-moe-a2.7b (the
-JAX package's other architectures are still to be ported, ROADMAP A7), and
-reduced ("tiny") variants for CPU tests.
+"""Architecture registry of the port: the paper's llama2-7b and every
+attention architecture of the JAX package's zoo — the dense qwen2-7b,
+starcoder2-3b, gemma2-2b and gemma2-9b (tied embeddings), musicgen-medium
+and pixtral-12b (embedding inputs from a stubbed frontend), and the
+mixture-of-experts qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a
+leading dense-FFN layer) — and reduced ("tiny") variants for CPU tests.
+The SSM (mamba2-1.3b) and hybrid (zamba2-7b) architectures wait for their
+port (ROADMAP A7).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from ..models.config import ModelConfig
+from ..models.config import MLAConfig, ModelConfig
 
 # arch id -> (module, long_500k runnable?) — the JAX package's registry
 ARCHS = {
+    "deepseek-v2-lite-16b": ("deepseek_v2_lite_16b", False),
     "qwen2-moe-a2.7b": ("qwen2_moe_a2_7b", False),
     "starcoder2-3b": ("starcoder2_3b", False),
+    "gemma2-2b": ("gemma2_2b", True),
+    "gemma2-9b": ("gemma2_9b", True),
     "qwen2-7b": ("qwen2_7b", False),
+    "musicgen-medium": ("musicgen_medium", False),
+    "pixtral-12b": ("pixtral_12b", False),
     "llama2-7b": ("llama2_7b", False),
 }
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
-        raise KeyError(f"{arch!r} is not ported yet (ROADMAP A7); the port "
-                       f"has {tuple(ARCHS)}")
+        raise KeyError(f"{arch!r} is not ported yet (the SSM and hybrid "
+                       f"architectures wait for ROADMAP A7); the port has "
+                       f"{tuple(ARCHS)}")
     mod, _ = ARCHS[arch]
     return importlib.import_module(f".{mod}", __package__).get_config()
 
@@ -33,17 +43,23 @@ def long_ok(arch: str) -> bool:
 
 def tiny_config(arch: str) -> ModelConfig:
     """Same family and topology at tiny dims — the JAX package's
-    `tiny_config` for the attention archs the port has (MoE: 8 experts,
-    top-2, d_expert 32, a fused shared FFN 64 wide where the config has
-    shared experts)."""
+    `tiny_config` (MoE: 8 experts, top-2, d_expert 32, a fused shared FFN
+    64 wide where the config has shared experts, leading dense layers 96
+    wide; MLA: rank 32, head dims 16/8/16). `get_config` refuses the SSM
+    and hybrid archs, whose branches of the JAX function wait for them."""
     cfg = get_config(arch)
-    attn = dataclasses.replace(
+    attn = cfg.attn and dataclasses.replace(
         cfg.attn, num_heads=4, num_kv_heads=min(cfg.attn.num_kv_heads, 2),
         head_dim=16, sliding_window=8 if cfg.attn.sliding_window else None)
+    mla = cfg.mla and MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                                qk_rope_head_dim=8, v_head_dim=16)
     moe = cfg.moe and dataclasses.replace(
         cfg.moe, num_experts=8, top_k=2, d_expert=32,
         shared_d_ff=64 if (cfg.moe.num_shared or cfg.moe.shared_d_ff)
-        else None)
+        else None,
+        first_dense_d_ff=96 if cfg.moe.first_dense else 0)
+    first = cfg.moe.first_dense if cfg.moe else 0
     return dataclasses.replace(
-        cfg, name=f"tiny-{cfg.name}", num_layers=2 * len(cfg.pattern),
-        d_model=64, d_ff=128, vocab_size=256, attn=attn, moe=moe)
+        cfg, name=f"tiny-{cfg.name}",
+        num_layers=first + 2 * len(cfg.pattern), d_model=64, d_ff=128,
+        vocab_size=256, attn=attn, mla=mla, moe=moe)

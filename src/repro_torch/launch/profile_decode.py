@@ -95,6 +95,9 @@ def main(argv=None):
         raise SystemExit("profile_decode needs a CUDA device")
 
     cfg = get_config(args.arch)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(f"{cfg.name} has a stubbed frontend: "
+                         f"ServeEngine.generate takes tokens")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     qparams = init_quantized_params(param_defs(cfg), cfg.weight_bits, gen,
                                     "cuda")

@@ -47,6 +47,9 @@ def main(argv=None):
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     if args.bits:
         cfg = dataclasses.replace(cfg, weight_bits=args.bits)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(f"{cfg.name} has a stubbed frontend: serve it "
+                         f"through Model.prefill/decode_step on embeddings")
     defs = param_defs(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = (init_quantized_params(defs, cfg.weight_bits, gen, device)

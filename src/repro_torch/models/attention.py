@@ -1,6 +1,6 @@
-"""Grouped-query attention (port of the GQA half of the JAX package's
-`models/attention.py`): a full-sequence path (prefill) and a one-token
-cached path (decode).
+"""Attention (port of the JAX package's `models/attention.py`): grouped-query
+attention and deepseek-v2's multi-head latent attention (MLA), each with a
+full-sequence path (prefill) and a one-token cached path (decode).
 
 KV caches are position-stamped ring buffers: alongside k/v a `positions`
 tensor (init −1); sliding-window ("local") layers allocate only `window`
@@ -8,7 +8,10 @@ slots and rotate. Masks come from the stamped positions, never from slot
 order. The decode step writes the new token into the cache IN PLACE, where
 the JAX package returns an updated copy (donated under jit).
 
-MLA (deepseek-v2) waits for the rest of the model zoo (ROADMAP A7).
+The MLA cache holds only the normalized latent `c_kv` and the rotated
+shared key `k_rope` a slot, with the same position stamps; its decode is
+the absorbed one (queries through `w_uk`, the context through `w_uv`, both
+float32 einsums), and it never runs the flash-decode kernel B4.
 """
 from __future__ import annotations
 
@@ -16,9 +19,9 @@ from typing import Optional
 
 import torch
 
-from .config import AttnConfig
-from .layers import (apply_rope, dense, dense_group, rope_frequencies,
-                     softcap)
+from .config import AttnConfig, MLAConfig
+from .layers import (apply_rope, dense, dense_group, rmsnorm,
+                     rope_frequencies, softcap)
 
 NEG_INF = -2.3819763e38  # ~ lowest bf16-representable; used pre-softmax
 
@@ -230,3 +233,98 @@ def gqa_cache_init(batch: int, slots: int, acfg: AttnConfig, dtype,
             cache[name] = torch.zeros((batch, slots, hkv, d), dtype=dtype,
                                       device=device)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2-lite flavour)
+# ---------------------------------------------------------------------------
+
+def _mla_latent(x, p, acfg: AttnConfig, mla: MLAConfig, positions,
+                act_bits, impl) -> tuple:
+    """q (B,S,H,dn+dr) with its rope half rotated, the normalized latent
+    c_kv (B,S,L) and the rotated shared key k_rope (B,S,1,dr). `wq` and
+    `w_dkv` are two linears, as in the JAX package: at act_bits each
+    quantizes its own activations."""
+    b, s, _ = x.shape
+    h = acfg.num_heads
+    dn, dr, lr = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+    q = dense(x, p["wq"], act_bits=act_bits, impl=impl).reshape(
+        b, s, h, dn + dr)
+    dkv = dense(x, p["w_dkv"], act_bits=act_bits, impl=impl)   # (B,S,L+dr)
+    c_kv = rmsnorm(dkv[..., :lr], p["kv_norm"]["scale"])
+    cos, sin = rope_frequencies(dr, acfg.rope_base, positions)
+    q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], cos, sin)], dim=-1)
+    k_rope = apply_rope(dkv[..., lr:].reshape(b, s, 1, dr), cos, sin)
+    return q, c_kv, k_rope
+
+
+def _up(c_kv, w, lr: int, h: int) -> torch.Tensor:
+    """(B,S,L) latent through a float (L, H·d) up-projection, in float32 →
+    (B,S,H,d)."""
+    return torch.einsum("btl,lhd->bthd", c_kv.to(torch.float32),
+                        w.reshape(lr, h, -1).to(torch.float32))
+
+
+def mla_forward(x, p, acfg: AttnConfig, mla: MLAConfig,
+                positions: torch.Tensor, act_bits=None, impl=None,
+                return_kv: bool = False):
+    """Full-sequence MLA. Params: wq (E, H·(dn+dr)), w_dkv (E, L+dr),
+    kv_norm (L,), w_uk (L, H·dn), w_uv (L, H·dv), wo (H·dv, E); w_uk and
+    w_uv stay float."""
+    b, s, _ = x.shape
+    h, dn, dr = acfg.num_heads, mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    lr = mla.kv_lora_rank
+    q, c_kv, k_rope = _mla_latent(x, p, acfg, mla, positions, act_bits,
+                                  impl)
+    k = torch.cat([_up(c_kv, p["w_uk"], lr, h).to(x.dtype),
+                   k_rope.expand(b, s, h, dr)], dim=-1)
+    v = _up(c_kv, p["w_uv"], lr, h).to(x.dtype)
+    ctx = _attend(q, k, v, None, None, (dn + dr) ** -0.5)
+    out = dense(ctx, p["wo"], act_bits=act_bits, impl=impl)
+    return (out, (c_kv, k_rope[:, :, 0])) if return_kv else out
+
+
+def mla_decode(x, p, acfg: AttnConfig, mla: MLAConfig, cache: dict, pos,
+               act_bits=None, impl=None):
+    """Absorbed one-token MLA. x (B,1,E); cache {c_kv (B,Sc,L), k_rope
+    (B,Sc,dr), positions (B,Sc)}, updated in place and returned. A slot
+    counts if 0 ≤ stamp ≤ pos."""
+    b = x.shape[0]
+    h, dn, dr = acfg.num_heads, mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    lr = mla.kv_lora_rank
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    pos = pos.expand(b) if pos.ndim == 0 else pos            # per lane
+    q, c_kv, k_rope = _mla_latent(x, p, acfg, mla, pos[:, None], act_bits,
+                                  impl)
+    lane = torch.arange(b, device=x.device)
+    cache["c_kv"][lane, pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][lane, pos] = k_rope[:, 0, 0].to(cache["k_rope"].dtype)
+    cache["positions"][lane, pos] = pos.to(cache["positions"].dtype)
+    ckv_all = cache["c_kv"].to(torch.float32)                  # (B,Sc,L)
+    pos_all = cache["positions"]
+    # absorb q_nope through W_uk: (B,1,H,dn)·(L,H,dn) → (B,1,H,L)
+    q_abs = torch.einsum("bshd,lhd->bshl", q[..., :dn].to(torch.float32),
+                         p["w_uk"].reshape(lr, h, dn).to(torch.float32))
+    scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv_all)
+              + torch.einsum("bshr,btr->bhst", q[..., dn:].to(torch.float32),
+                             cache["k_rope"].to(torch.float32))
+              ) * (dn + dr) ** -0.5
+    ok = (pos_all >= 0) & (pos_all <= pos[:, None])
+    w = torch.softmax(scores + _additive(ok)[:, None, None, :], dim=-1)
+    ctx_l = torch.einsum("bhst,btl->bshl", w, ckv_all)
+    ctx = torch.einsum("bshl,lhd->bshd", ctx_l,
+                       p["w_uv"].reshape(lr, h, -1).to(torch.float32))
+    ctx = ctx.reshape(b, 1, -1).to(x.dtype)
+    return dense(ctx, p["wo"], act_bits=act_bits, impl=impl), cache
+
+
+def mla_cache_init(batch: int, slots: int, mla: MLAConfig, dtype,
+                   device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, slots, mla.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, slots, mla.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "positions": torch.full((batch, slots), -1, dtype=torch.int32,
+                                device=device),
+    }

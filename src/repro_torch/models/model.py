@@ -1,18 +1,22 @@
 """Decoder LM (port of the JAX package's `models/model.py`) for attention
-stacks with dense or mixture-of-experts FFNs — the paper's llama2-7b and
-its kin, and qwen2-moe.
+stacks — GQA or MLA, with dense or mixture-of-experts FFNs, token or
+embedding inputs, a separate or a tied output head: the paper's llama2-7b
+and every attention architecture of the JAX package's zoo.
 
-Parameters keep the JAX package's layout: each pattern stage's parameters
-are stacked along a leading "stack" axis, and so are its decode caches. The
-JAX package runs a `lax.scan` over that axis; here it is a Python loop over
+Parameters keep the JAX package's layout: the leading dense-FFN layers
+(deepseek's `first`) and each pattern stage have their parameters stacked
+along a leading "stack" axis, and so do their decode caches. The JAX
+package runs a `lax.scan` over that axis; here it is a Python loop over
 layers. Three entry points:
   forward(params, batch)                 → logits  [scoring]
   prefill(params, batch, max_seq)        → logits, cache
-  decode_step(params, cache, tok, pos)   → logits, cache   [one token]
+  decode_step(params, cache, inp, pos)   → logits, cache   [one token]
+A batch holds "tokens" (B, S), or "embeddings" (B, S, E) for a config
+whose frontend is stubbed (`input_mode="embeddings"`); `inp` is then (B,)
+tokens or (B, E) embeddings.
 
-MLA (with deepseek's leading dense-FFN layers), SSM, hybrid, tied-embedding
-and embedding-input configurations wait for the rest of the model zoo
-(ROADMAP A7) and raise `NotImplementedError`.
+SSM and hybrid configurations wait for their port (ROADMAP A7) and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from . import attention as attn_mod
 from . import moe as moe_mod
 from .config import ModelConfig
-from .layers import embed, ffn, lm_head, norm
+from .layers import embed, ffn, lm_head, norm, softcap
 from .params import ParamDef, init_params  # noqa: F401  (re-exported)
 
 
@@ -36,17 +40,13 @@ SERVE_CAPACITY = 2.0
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configuration kinds the port does not have yet."""
     what = [name for name, on in (
-        ("MLA attention", cfg.mla is not None),
-        ("leading dense-FFN layers", bool(cfg.moe and cfg.moe.first_dense)),
         ("SSM stages", cfg.ssm is not None or "mamba" in cfg.pattern),
-        ("hybrid shared blocks", cfg.num_shared_blocks > 0),
-        ("embedding inputs", cfg.input_mode != "tokens"),
-        ("tied embeddings", cfg.tie_embeddings)) if on]
+        ("hybrid shared blocks", cfg.num_shared_blocks > 0)) if on]
     if what or cfg.attn is None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what) or 'no attention config'} not "
             f"ported yet (ROADMAP A7); the port serves attention stacks "
-            f"with dense or MoE FFNs")
+            f"(GQA or MLA) with dense or MoE FFNs")
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +62,12 @@ class StackPlan:
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
     check_supported(cfg)
-    if cfg.num_layers % len(cfg.pattern):
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers not "
-                         f"divisible by pattern {cfg.pattern}")
-    return StackPlan(first=0, repeats=cfg.num_layers // len(cfg.pattern),
+    first = cfg.moe.first_dense if cfg.moe else 0
+    body = cfg.num_layers - first
+    if body % len(cfg.pattern):
+        raise ValueError(f"{cfg.name}: {body} layers after {first} leading "
+                         f"ones not divisible by pattern {cfg.pattern}")
+    return StackPlan(first=first, repeats=body // len(cfg.pattern),
                      trailing=0)
 
 
@@ -88,6 +90,23 @@ def _norm_defs(cfg, stack, dim=None):
 
 def _attn_defs(cfg: ModelConfig, stack):
     e, a = cfg.d_model, cfg.attn
+    if cfg.mla is not None:
+        m, h = cfg.mla, a.num_heads
+        return {
+            "wq": _stk(stack, (e, h * (m.qk_nope_head_dim
+                                       + m.qk_rope_head_dim)),
+                       ("embed", "heads")),
+            "w_dkv": _stk(stack, (e, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("embed", "lora")),
+            "kv_norm": _norm_defs(
+                dataclasses.replace(cfg, norm_type="rmsnorm"), stack,
+                m.kv_lora_rank),
+            "w_uk": _stk(stack, (m.kv_lora_rank, h * m.qk_nope_head_dim),
+                         ("lora", "heads")),
+            "w_uv": _stk(stack, (m.kv_lora_rank, h * m.v_head_dim),
+                         ("lora", "heads")),
+            "wo": _stk(stack, (h * m.v_head_dim, e), ("heads", "embed")),
+        }
     d = {
         "wq": _stk(stack, (e, a.num_heads * a.head_dim), ("embed", "heads")),
         "wk": _stk(stack, (e, a.num_kv_heads * a.head_dim),
@@ -106,8 +125,8 @@ def _attn_defs(cfg: ModelConfig, stack):
     return d
 
 
-def _ffn_defs(cfg: ModelConfig, stack):
-    e, f = cfg.d_model, cfg.d_ff
+def _ffn_defs(cfg: ModelConfig, stack, d_ff: Optional[int] = None):
+    e, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.ffn_type == "glu":
         return {"up": _stk(stack, (e, f), ("embed", "mlp")),
                 "gate": _stk(stack, (e, f), ("embed", "mlp")),
@@ -139,13 +158,14 @@ def _moe_defs(cfg: ModelConfig, stack):
     return d
 
 
-def _stage_defs(cfg: ModelConfig, stack, use_moe: bool):
+def _stage_defs(cfg: ModelConfig, stack, use_moe: bool,
+                dense_d_ff: Optional[int] = None):
     d = {"ln1": _norm_defs(cfg, stack), "attn": _attn_defs(cfg, stack),
          "ln2": _norm_defs(cfg, stack)}
     if use_moe:
         d["moe"] = _moe_defs(cfg, stack)
     else:
-        d["ffn"] = _ffn_defs(cfg, stack)
+        d["ffn"] = _ffn_defs(cfg, stack, dense_d_ff)
     if cfg.post_norms:
         d["ln1_post"] = _norm_defs(cfg, stack)
         d["ln2_post"] = _norm_defs(cfg, stack)
@@ -153,16 +173,25 @@ def _stage_defs(cfg: ModelConfig, stack, use_moe: bool):
 
 
 def param_defs(cfg: ModelConfig):
+    """The JAX package's tree: `embed` only where tokens come in or the
+    head is tied to it, `lm_head` only where it is not; `first` only where
+    the config has leading dense-FFN layers."""
     plan = stack_plan(cfg)
-    return {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
-        "stages": {str(i): _stage_defs(cfg, (plan.repeats,),
-                                       cfg.moe is not None)
-                   for i in range(len(cfg.pattern))},
-        "final_norm": _norm_defs(cfg, ()),
-        "lm_head": ParamDef((cfg.d_model, cfg.vocab_size),
-                            ("embed", "vocab")),
-    }
+    defs: dict = {}
+    if cfg.input_mode == "tokens" or cfg.tie_embeddings:
+        defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model),
+                                 ("vocab", "embed"))
+    if plan.first:
+        defs["first"] = _stage_defs(cfg, (plan.first,), use_moe=False,
+                                    dense_d_ff=cfg.moe.first_dense_d_ff)
+    defs["stages"] = {str(i): _stage_defs(cfg, (plan.repeats,),
+                                          cfg.moe is not None)
+                      for i in range(len(cfg.pattern))}
+    defs["final_norm"] = _norm_defs(cfg, ())
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   ("embed", "vocab"))
+    return defs
 
 
 def layer_params(tree, i: int):
@@ -179,6 +208,13 @@ def layer_params(tree, i: int):
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.attn.sliding_window if kind == "local" else None
+
+
+def _stack(tree, name: str):
+    """The stacked subtree of a parameter or cache tree that holds the
+    layer stack `name`: "first" (the leading dense-FFN layers) or a pattern
+    stage's index."""
+    return tree["first"] if name == "first" else tree["stages"][name]
 
 
 def _finish_stage(x, h, p, cfg: ModelConfig, act_bits, impl,
@@ -217,10 +253,11 @@ class Model:
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
-        self.kv_bits = kv_bits      # 8 → int8 KV cache
+        self.kv_bits = kv_bits      # 8 → int8 KV cache (GQA stages)
         # decode attention: "sdpa" (plain, widens the cache) or "kernel"
         # (the flash-decode kernel B4 on the raw cache; its plain version
-        # on CPU tensors, where the JAX package says "kernel_interpret")
+        # on CPU tensors, where the JAX package says "kernel_interpret");
+        # MLA ignores it, as in the JAX package
         self.attn_impl = attn_impl
 
     @property
@@ -228,35 +265,60 @@ class Model:
         return getattr(torch, self.cfg.dtype)
 
     def _layers(self, params):
-        """(layer params, pattern index, kind) in stack order."""
-        cfg = self.cfg
-        for r in range(stack_plan(cfg).repeats):
+        """(layer params, stack name, index in the stack, kind) in layer
+        order: the leading dense-FFN layers, then the pattern repeats."""
+        cfg, plan = self.cfg, stack_plan(self.cfg)
+        for r in range(plan.first):
+            yield layer_params(params["first"], r), "first", r, cfg.pattern[0]
+        for r in range(plan.repeats):
             for i, kind in enumerate(cfg.pattern):
-                yield layer_params(params["stages"][str(i)], r), i, r, kind
+                yield (layer_params(params["stages"][str(i)], r), str(i), r,
+                       kind)
 
-    def _embed_in(self, params, tokens):
+    def _embed_in(self, params, batch):
+        """batch["embeddings"] (a stubbed frontend's) in the model's dtype,
+        or the token embedding of batch["tokens"]."""
         cfg = self.cfg
-        return embed(tokens, params["embed"], cfg.embed_scale, cfg.d_model,
-                     dtype=self.dtype)
+        if cfg.input_mode == "embeddings":
+            return batch["embeddings"].to(self.dtype)
+        return embed(batch["tokens"], params["embed"], cfg.embed_scale,
+                     cfg.d_model, dtype=self.dtype)
 
     def _logits(self, params, x):
-        return lm_head(x, params["lm_head"], self.cfg.final_softcap,
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            # a float product against the embedding table outside the
+            # bit-plane kernels, in x's dtype, as in the JAX package
+            # (`ServeEngine` holds a tied table in that dtype already)
+            logits = x @ params["embed"].to(x.dtype).T
+            return softcap(logits.to(torch.float32), cfg.final_softcap)
+        return lm_head(x, params["lm_head"], cfg.final_softcap,
                        self.act_bits, self.impl)
+
+    def _attention(self, h, p, kind: str, positions, return_kv=False):
+        """A stage's full-sequence attention (MLA or GQA)."""
+        cfg, ab, impl = self.cfg, self.act_bits, self.impl
+        if cfg.mla is not None:
+            return attn_mod.mla_forward(h, p["attn"], cfg.attn, cfg.mla,
+                                        positions, ab, impl, return_kv)
+        return attn_mod.gqa_forward(h, p["attn"], cfg.attn,
+                                    _window(cfg, kind), positions, ab, impl,
+                                    return_kv)
 
     # -- full-sequence forward ----------------------------------------------
 
     def forward(self, params, batch):
-        """batch: {"tokens" (B,S)} → logits (B,S,V), aux loss (the MoE
-        routers' summed over layers; 0 without MoE)."""
+        """batch: {"tokens" (B,S) | "embeddings" (B,S,E)} → logits
+        (B,S,V), aux loss (the MoE routers' summed over layers; 0 without
+        MoE)."""
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         ab, impl = self.act_bits, self.impl
         aux = torch.zeros((), device=x.device)
-        for p, _i, _r, kind in self._layers(params):
-            h = attn_mod.gqa_forward(norm(x, p["ln1"], cfg.norm_type),
-                                     p["attn"], cfg.attn, _window(cfg, kind),
-                                     positions, ab, impl)
+        for p, _name, _r, kind in self._layers(params):
+            h = self._attention(norm(x, p["ln1"], cfg.norm_type), p, kind,
+                                positions)
             x, a = _finish_stage(x, h, p, cfg, ab, impl)
             if a is not None:
                 aux = aux + a
@@ -269,33 +331,51 @@ class Model:
         window = _window(self.cfg, kind)
         return min(window, max_seq) if window else max_seq
 
+    def _layer_cache(self, kind: str, batch: int, max_seq: int, dtype,
+                     device) -> dict:
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return attn_mod.mla_cache_init(batch, max_seq, cfg.mla, dtype,
+                                           device)
+        return attn_mod.gqa_cache_init(batch, self._slots(kind, max_seq),
+                                       cfg.attn, dtype, self.kv_bits,
+                                       device)
+
     def init_cache(self, batch: int, max_seq: int, device=None):
         cfg, plan = self.cfg, stack_plan(self.cfg)
-        stages = {}
-        for i, kind in enumerate(cfg.pattern):
-            c = attn_mod.gqa_cache_init(batch, self._slots(kind, max_seq),
-                                        cfg.attn, self.dtype, self.kv_bits,
-                                        device)
-            stages[str(i)] = {k: v.expand(plan.repeats, *v.shape).clone()
-                              for k, v in c.items()}
-        return {"stages": stages}
+
+        def stacked(kind, n):
+            c = self._layer_cache(kind, batch, max_seq, self.dtype, device)
+            return {k: v.expand(n, *v.shape).clone() for k, v in c.items()}
+        cache: dict = {}
+        if plan.first:
+            cache["first"] = stacked(cfg.pattern[0], plan.first)
+        cache["stages"] = {str(i): stacked(kind, plan.repeats)
+                           for i, kind in enumerate(cfg.pattern)}
+        return cache
 
     # -- decode ------------------------------------------------------------------
 
     def decode_step(self, params, cache, inp, pos):
-        """One token for the whole batch. inp: (B,) int tokens; pos: the
-        current position (int or (B,) tensor). The cache is updated in
-        place; returns (logits (B, V), cache)."""
+        """One token for the whole batch. inp: (B,) int tokens, or (B, E)
+        embeddings for a stubbed frontend; pos: the current position (int
+        or (B,) tensor). The cache is updated in place; returns (logits
+        (B, V), cache)."""
         cfg = self.cfg
-        x = self._embed_in(params, inp[:, None])
+        key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
+        x = self._embed_in(params, {key: inp[:, None]})
         pos = torch.as_tensor(pos, device=x.device)
         ab, impl = self.act_bits, self.impl
-        for p, i, r, kind in self._layers(params):
-            c = layer_params(cache["stages"][str(i)], r)
-            h, _ = attn_mod.gqa_decode(norm(x, p["ln1"], cfg.norm_type),
-                                       p["attn"], cfg.attn,
-                                       _window(cfg, kind), c, pos, ab, impl,
-                                       attn_impl=self.attn_impl)
+        for p, name, r, kind in self._layers(params):
+            c = layer_params(_stack(cache, name), r)
+            h = norm(x, p["ln1"], cfg.norm_type)
+            if cfg.mla is not None:
+                h, _ = attn_mod.mla_decode(h, p["attn"], cfg.attn, cfg.mla,
+                                           c, pos, ab, impl)
+            else:
+                h, _ = attn_mod.gqa_decode(h, p["attn"], cfg.attn,
+                                           _window(cfg, kind), c, pos, ab,
+                                           impl, attn_impl=self.attn_impl)
             x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
         x = norm(x, params["final_norm"], cfg.norm_type)
         return self._logits(params, x)[:, 0], cache
@@ -304,12 +384,21 @@ class Model:
 
     def _kv_to_cache(self, kind: str, kv, max_seq: int) -> dict:
         """Full-sequence attention products → position-stamped decode
-        cache."""
+        cache: MLA's (c_kv, k_rope) in slots 0..s−1, GQA's (k, v) in the
+        ring of the stage's slots."""
+        if self.cfg.mla is not None:
+            c_kv, k_rope = kv
+            b, s = c_kv.shape[:2]
+            c = self._layer_cache(kind, b, max_seq, c_kv.dtype, c_kv.device)
+            c["c_kv"][:, :s] = c_kv
+            c["k_rope"][:, :s] = k_rope
+            c["positions"][:, :s] = torch.arange(s, dtype=torch.int32,
+                                                 device=c_kv.device)
+            return c
         k, v = kv
         b, s = k.shape[:2]
         slots = self._slots(kind, max_seq)
-        c = attn_mod.gqa_cache_init(b, slots, self.cfg.attn, k.dtype,
-                                    self.kv_bits, k.device)
+        c = self._layer_cache(kind, b, max_seq, k.dtype, k.device)
         keep = min(s, slots)
         ps = torch.arange(s - keep, s, device=k.device)
         ring = ps % slots
@@ -328,22 +417,24 @@ class Model:
         """One full-sequence pass producing (last-token logits, decode
         cache in the stacked layout)."""
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         s = x.shape[1]
         if s > max_seq:
             raise ValueError(f"prompt length {s} exceeds max_seq={max_seq}")
         positions = torch.arange(s, device=x.device)
         ab, impl = self.act_bits, self.impl
-        per_stage: dict = {str(i): [] for i in range(len(cfg.pattern))}
-        for p, i, _r, kind in self._layers(params):
-            h, kv = attn_mod.gqa_forward(norm(x, p["ln1"], cfg.norm_type),
-                                         p["attn"], cfg.attn,
-                                         _window(cfg, kind), positions, ab,
-                                         impl, return_kv=True)
-            per_stage[str(i)].append(self._kv_to_cache(kind, kv, max_seq))
+        per_stack: dict = {}
+        for p, name, _r, kind in self._layers(params):
+            h, kv = self._attention(norm(x, p["ln1"], cfg.norm_type), p,
+                                    kind, positions, return_kv=True)
+            per_stack.setdefault(name, []).append(
+                self._kv_to_cache(kind, kv, max_seq))
             x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
-        cache = {"stages": {
-            i: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
-            for i, cs in per_stage.items()}}
+        stacked = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                   for name, cs in per_stack.items()}
+        cache = {"stages": {n: c for n, c in stacked.items()
+                            if n != "first"}}
+        if "first" in stacked:
+            cache["first"] = stacked["first"]
         x = norm(x, params["final_norm"], cfg.norm_type)
         return self._logits(params, x[:, -1:])[:, 0], cache

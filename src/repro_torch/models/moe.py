@@ -17,7 +17,8 @@ activations), where the JAX package vmaps B3 over the experts.
 
 Supports the two MoE flavours of the JAX package's zoo:
   deepseek-v2-lite: 64 routed / top-6 + 2 always-on shared experts,
-                    first layer dense (first_dense=1; waits for MLA);
+                    first layer dense (first_dense=1: the model's
+                    `first` stack);
   qwen2-moe:        60 routed / top-4 + 4 shared experts (padded to 64
                     routed by the config).
 """

@@ -61,6 +61,12 @@ class ServeEngine:
         # none until the simulator is ported (ROADMAP A9)
         self.decode_program = None
         params = params_to(params, self.device)
+        if cfg.tie_embeddings:
+            # the tied head reads the whole table every step in the model's
+            # dtype (the JAX package casts it per call): hold it so once;
+            # its rows embed the tokens with the same values either way
+            params = {**params,
+                      "embed": params["embed"].to(getattr(torch, cfg.dtype))}
         model_impl = impl
         if quantized:
             params = quantize_params(params, cfg.weight_bits)

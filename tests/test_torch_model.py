@@ -224,6 +224,8 @@ def test_flash_attention_matches_jax_and_direct(rng, window):
 
 
 def test_unported_configs_raise():
+    """Embedding inputs are ported now; hybrid shared blocks are not."""
     cfg = tiny_config("llama2-7b")
+    Model(dataclasses.replace(cfg, input_mode="embeddings"))
     with pytest.raises(NotImplementedError, match="A7"):
-        Model(dataclasses.replace(cfg, input_mode="embeddings"))
+        Model(dataclasses.replace(cfg, num_shared_blocks=2, shared_every=1))

@@ -151,14 +151,16 @@ def _def_leaves(tree, path=()):
 
 
 def test_mla_and_ssm_configs_still_raise():
+    """MLA and leading dense-FFN layers are ported now (a MoE config takes
+    them); SSM stages still raise."""
     cfg = tiny_config(ARCH)
-    for bad in (dataclasses.replace(cfg, mla=MLAConfig()),
-                dataclasses.replace(cfg, ssm=SSMConfig(),
-                                    pattern=("mamba",)),
-                dataclasses.replace(cfg, moe=dataclasses.replace(
-                    cfg.moe, first_dense=1, first_dense_d_ff=96))):
-        with pytest.raises(NotImplementedError, match="A7"):
-            Model(bad)
+    for ok in (dataclasses.replace(cfg, mla=MLAConfig()),
+               dataclasses.replace(cfg, moe=dataclasses.replace(
+                   cfg.moe, first_dense=1, first_dense_d_ff=96))):
+        Model(ok)
+        assert set(param_defs(ok)) >= {"stages", "lm_head"}
+    with pytest.raises(NotImplementedError, match="A7"):
+        Model(dataclasses.replace(cfg, ssm=SSMConfig(), pattern=("mamba",)))
 
 
 # -- router, capacity -------------------------------------------------------
