@@ -15,9 +15,10 @@ Phases, each printing one JSON line:
      split and the block folds its own tiles, each also timed through a
      workspace and the fold launch that several splits take): B1 and B2
      bitwise, B2 also bitwise against per-leaf B1, B3 within rtol 1e-5 /
-     atol 1e-5·max|plain|; each timed beside its plain version, a bf16
-     torch.matmul of the same product (a yardstick the port never calls)
-     and its bound;
+     atol 1e-5·max|plain|; B1 and B3 also at q4 at mamba2-1.3b's and
+     zamba2-7b's in_proj and out_proj (B = 4); each timed beside its plain
+     version, a bf16 torch.matmul of the same product (a yardstick the
+     port never calls) and its bound;
   3. slice, act_bits=4: full-width llama2-7b (random weights from a seed,
      2-bit planes) serves 4 requests of 16 prompt tokens and 16 new tokens
      through `ServeEngine(quantized=True, act_bits=4)`; the launch counts
@@ -35,7 +36,8 @@ Phases, each printing one JSON line:
      windowed ring-buffer and no-valid-slot shapes, and at head dims 16 and
      112 (between the kernel's built sizes) and 320 (its generic body) on
      caches of 4096 slots, and at pixtral-12b's own call (GQA 32 over 8,
-     int8, 16–31 valid slots) (rtol/atol 1e-5 for a float32 output, one bf16
+     int8, 16–31 valid slots) and zamba2-7b's (32 heads of 112, int8,
+     16–31 valid slots) (rtol/atol 1e-5 for a float32 output, one bf16
      ulp plus 1e-5·max for a bf16 one); B5 quant_matmul at llama2-7b's
      decode shapes, q2, and one grouped shape, with B3's split plan (rtol
      1e-5, atol 1e-5·max|plain|); each timed beside its plain version, its
@@ -46,8 +48,8 @@ Phases, each printing one JSON line:
      B4: `Model(attn_impl="kernel")` on the quantized parameters behind
      `EngineLinear(MVDRAMEngine())` serves the same requests; B4 must run
      32 times a decode step (each with its fold launch, the plan splitting
-     the 4096 slots), B1 and B2 (and their folds) run, no plain version,
-     no copy of the groups' weights.
+     the 4096 slots), B1 and B2 as often as `launches_per_pass` says (and
+     their folds), no plain version, no copy of the groups' weights.
      A replay holds B4 against its plain version at every
      layer of every step on the path's own inputs; each decode step's
      logits are compared with the same model on `attn_impl="sdpa"` fed the
@@ -104,13 +106,27 @@ Phases, each printing one JSON line:
      seeded bf16 frames, (B, 16, 5120) for the prompt and one (B, 5120) a
      step): phase 6's checks through `Model.prefill`/`decode_step`, B4 40
      times a decode step on its GQA (32 query heads over 8);
- 15. slices, deepseek-v2-lite-16b at full width (27 layers: one with a
-     dense FFN, 26 MoE with 64 experts at top-6 and two shared; MLA,
-     whose absorbed decode never runs B4), act_bits=None then 4: phase 10
-     and 11's checks, every launch count exact (78 bf16 stacked launches
-     a forward pass), the `live` bounds seen and the most experts with
-     rows in one stacked call;
- 16. the kernels line, then the card's name and power limit, then the
+ 15. slices, deepseek-v2-lite-16b at full width and a third of its depth
+     (9 of 27 layers: one with a dense FFN, 8 MoE with 64 experts at top-6
+     and two shared; MLA, whose absorbed decode never runs B4),
+     act_bits=None then 4: phase 10 and 11's checks, every launch count
+     exact (24 bf16 stacked launches a forward pass), the `live` bounds
+     seen and the most experts with rows in one stacked call;
+ 16. slices, mamba2-1.3b at full width (48 Mamba2 layers, q4, the head
+     tied to the embedding table; the chunked SSD scan and the recurrence
+     in float32 torch), act_bits=4 then None through `ServeEngine`:
+     phase 13's checks, B1 96 a pass (in_proj and out_proj a layer) or B3
+     96, no B2; with float activations the 5 % rule on the prefill logits
+     is held with float32 activations between the layers (bf16 ones make
+     the SSM chaotic: the plain model's own move under a 1e-6 nudge of
+     every B3 output is reported beside it);
+ 17. slice, zamba2-7b at full width (81 Mamba2 layers and 13 invocations
+     of two shared attention blocks, 32 heads of 112, q4): phase 6's
+     checks through `Model`, B1 189 and B2 26 a pass, B4 13 times a
+     decode step (one per invocation, each on its own cache), the float
+     decode logits against `sdpa`'s held with float32 activations and
+     reported with bf16 ones;
+ 18. the kernels line, then the card's name and power limit, then the
      result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
@@ -123,6 +139,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -160,6 +177,7 @@ SOURCES = {
 }
 CONTEXT = 4096             # llama2-7b's published context (KV-cache slots)
 MOE_ARCH = "qwen2-moe-a2.7b"
+DEEPSEEK_LAYERS = 9        # of 27: the depth cut of its slices
 LOGIT_RTOL = 0.05          # of max|logit|, for paths that are not bitwise
 
 
@@ -260,6 +278,14 @@ B3_ONLY_SHAPES = {"q/k/v": ((4096, 4096), 3), "up/gate": ((4096, 11008), 2)}
 PREFILL_SHAPES = {"up/gate prefill": (4096, 11008),
                   "lm_head prefill": (4096, 32000)}
 GROUP_SHAPES = {"qkv": [(4096, 4096)] * 3, "up_gate": [(4096, 11008)] * 2}
+# B1 and B3 at the SSM and hybrid slices' own leaves, q4, B lanes:
+# mamba2-1.3b's and zamba2-7b's in_proj and out_proj (not counted in
+# llama2-7b's decode layer)
+SSM_SHAPES = {"mamba2-1.3b in_proj": (2048, 8512),
+              "mamba2-1.3b out_proj": (4096, 2048),
+              "zamba2-7b in_proj": (3584, 14576),
+              "zamba2-7b out_proj": (7168, 3584)}
+SSM_BITS = 4
 
 
 def _leaf(n, m, gen, bits):
@@ -322,15 +348,18 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
     rows = {"gemv_bs": [], "gemv_f": [], "program_gemv": []}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    # B1 and B3 per leaf: decode shapes, then prefill ones
-    shapes = [(name, nm, count, B) for name, (nm, count)
+    # B1 and B3 per leaf: decode shapes, then prefill ones, then the SSM
+    # and hybrid leaves at their own bits
+    shapes = [(name, nm, count, B, weight_bits) for name, (nm, count)
               in {**LEAF_SHAPES, **B3_ONLY_SHAPES}.items()] + [
-        (name, nm, 0, B * PROMPT) for name, nm in PREFILL_SHAPES.items()]
-    for name, (n, m), count, batch in shapes:
-        bw = _leaf(n, m, gen, weight_bits)
+        (name, nm, 0, B * PROMPT, weight_bits)
+        for name, nm in PREFILL_SHAPES.items()] + [
+        (name, nm, 0, B, SSM_BITS) for name, nm in SSM_SHAPES.items()]
+    for name, (n, m), count, batch, bits in shapes:
+        bw = _leaf(n, m, gen, bits)
         x = torch.randn((batch, n), generator=gen, device="cuda")
         codes, a, scale_t, bs_kw, f_kw = _leaf_inputs(x, bw, act_bits)
-        k_copies = [(_leaf(n, m, gen, weight_bits) if i else bw)
+        k_copies = [(_leaf(n, m, gen, bits) if i else bw)
                     for i in range(copies_for(nbytes(bw.planes)))]
         wlib = [torch.randn((n, m), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
@@ -387,7 +416,7 @@ def phase_kernels(weight_bits: int, act_bits: int) -> dict:
             t_bound, by = bound(nbytes(arg, bw.planes, bw.scale),
                                 nbytes(got), ops_count, kind)
             rows[kname].append(dict(
-                shape=name, n=n, m=m, rows=batch, count=calls,
+                shape=name, n=n, m=m, rows=batch, q=bits, count=calls,
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
                 bound_by=by, plane_bound_ms=plane_bound_ms(bw.planes),
                 library_ms=lib_ms, **plan, **extra))
@@ -508,24 +537,40 @@ def held_no_copy(resident: dict, what: str) -> None:
                              f"copies beside the leaves")
 
 
+def stage_kinds(cfg) -> list:
+    """The kind of every stage a forward pass runs, in order (a hybrid's
+    shared-block invocations as "attn"): `Model._layers` without the
+    parameters."""
+    from repro_torch.models.model import stack_plan
+    plan = stack_plan(cfg)
+    shared = ["attn"] if cfg.num_shared_blocks else []
+    return ([cfg.pattern[0]] * plan.first
+            + (list(cfg.pattern) + shared) * plan.repeats
+            + [cfg.pattern[0]] * plan.trailing)
+
+
 def launches_per_pass(cfg, act_bits) -> dict:
     """Launches of each GeMV kernel in one forward pass of `cfg` served
     through the kernel backend (folds apart): at act_bits, B2 once per
     fused group (GQA's q/k/v, a GLU's up/gate, the shared experts'
     up/gate) and B1 on every other bit-plane linear (MLA's wq, w_dkv and
-    wo each, the downs, lm_head unless the head is tied to the embedding);
-    with float activations B3 on each of those leaves; the bf16 stacked B3
-    on each expert stack."""
+    wo each, the downs, a Mamba2 stage's in_proj and out_proj, lm_head
+    unless the head is tied to the embedding); with float activations B3
+    on each of those leaves; the bf16 stacked B3 on each expert stack."""
     from repro_torch.models.model import stack_plan
     plan = stack_plan(cfg)
+    kinds = stage_kinds(cfg)
+    mamba_layers = kinds.count("mamba")
+    attn_layers = len(kinds) - mamba_layers
     moe_layers = plan.repeats * len(cfg.pattern) if cfg.moe else 0
-    dense_layers = cfg.num_layers - moe_layers
-    groups = members = singles = 0
+    dense_layers = attn_layers - moe_layers
+    groups = members = 0
+    singles = 2 * mamba_layers
     if cfg.mla is not None:
-        singles += 3 * cfg.num_layers
+        singles += 3 * attn_layers
     else:
-        groups, members, singles = (cfg.num_layers, 3 * cfg.num_layers,
-                                    cfg.num_layers)
+        groups, members = attn_layers, 3 * attn_layers
+        singles += attn_layers
     if cfg.ffn_type == "glu":
         groups, members = groups + dense_layers, members + 2 * dense_layers
         singles += dense_layers
@@ -604,24 +649,68 @@ def tied_head(eng) -> dict:
             "table_bound_ms": nbytes(table) / HBM_BYTES_S * 1e3}
 
 
+def prefill_logits(cfg, qparams, prompts, act_bits, impl=None):
+    """The requests' prefill logits through a new `ServeEngine` on the
+    kernel backend (impl None) or on the plain versions ("reference")."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1, batch_slots=B,
+                      quantized=True, act_bits=act_bits, impl=impl,
+                      device="cuda")
+    with torch.no_grad():
+        return eng.model.prefill(eng.params, {"tokens": prompts},
+                                 eng.max_seq)[0]
+
+
+def ssm_float_check(cfg, qparams, prompts) -> dict:
+    """Float activations on a model with Mamba2 stages. In bf16 its logits
+    are chaotic: one bf16 rounding flip between the SSM's ops grows layer
+    by layer to a different answer (PERF.md §6), so B3's summation order
+    alone moves them by a quarter of their size. The 5 % rule is held with
+    float32 activations between the layers instead (the same planes and
+    kernels), and the plain model's own move in bf16 when every B3 output
+    is nudged by 1e-6 of itself is reported beside it."""
+    import torch
+    from repro_torch.kernels.bitplane_gemv import ref
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    got = prefill_logits(f32, qparams, prompts, None)
+    want = prefill_logits(f32, qparams, prompts, None, "reference")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:
+        raise AssertionError(f"{cfg.name} float32 activations: logits "
+                             f"differ from the plain versions' (max|Δ| "
+                             f"{err}, max|logit| {scale})")
+    plain = prefill_logits(cfg, qparams, prompts, None, "reference")
+    real = ref.gemv_f_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def nudged(*args, **kw):
+        o = real(*args, **kw)
+        return o * (1 + 1e-6 * torch.randn(o.shape, generator=gen,
+                                           device=o.device))
+    ref.gemv_f_ref = nudged
+    try:
+        moved = prefill_logits(cfg, qparams, prompts, None, "reference")
+    finally:
+        ref.gemv_f_ref = real
+    return {"prefill_logits_float32_max_abs_err_vs_plain": err,
+            "max_abs_logit_float32": scale,
+            "plain_prefill_logits_moved_by_1e-6_nudge": float(
+                (moved - plain).abs().max())}
+
+
 def phase_slice(cfg, qparams, prompts, act_bits, must_run, want=None,
                 name=None) -> dict:
     """Serve the requests (`served`); then hold the prefill logits against
     the same model on the plain versions: bitwise at act_bits, within 5 %
-    of max|logit| with float activations. A tied head is timed too."""
+    of max|logit| with float activations (with Mamba2 stages: float32
+    ones, `ssm_float_check`). A tied head is timed too."""
     import torch
-    from repro_torch.serve.engine import ServeEngine
     eng, _, out = served(cfg, qparams, prompts, act_bits, must_run, want)
     with torch.no_grad():
         got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
                                    eng.max_seq)
-        ref_eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
-                              batch_slots=B, quantized=True,
-                              act_bits=act_bits, impl="reference",
-                              device="cuda")
-        want_l, _ = ref_eng.model.prefill(ref_eng.params,
-                                          {"tokens": prompts}, eng.max_seq)
-        del ref_eng
+    want_l = prefill_logits(cfg, qparams, prompts, act_bits, "reference")
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite logits")
@@ -634,13 +723,15 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run, want=None,
     # held to agreement of the logits at bf16 resolution (a wrong kernel
     # misses by the logits' own size)
     scale = float(want_l.abs().max())
-    if not act_bits and err > LOGIT_RTOL * scale:
+    if not act_bits and cfg.ssm is None and err > LOGIT_RTOL * scale:
         raise AssertionError(f"act_bits=None: logits differ from the "
                              f"plain versions' (max|Δ| {err}, "
                              f"max|logit| {scale})")
     out = {"phase": name or f"slice_act_bits_{act_bits}", **out,
            "prefill_logits_max_abs_err_vs_plain": err,
            "max_abs_logit": scale}
+    if not act_bits and cfg.ssm is not None:
+        out |= ssm_float_check(cfg, qparams, prompts)
     if cfg.tie_embeddings:
         out |= tied_head(eng)
     emit(out)
@@ -701,6 +792,8 @@ DECODE_SHAPES = [
      "path", None, 1),
     ("pixtral-12b path: gqa 32/8, int8, 16-31 valid slots", 4, CONTEXT, 32,
      8, 128, "int8", "path", None, 0),
+    ("zamba2-7b path: mha 32 heads of 112, int8, 16-31 valid slots", 4,
+     CONTEXT, 32, 32, 112, "int8", "path", None, 0),
     ("llama2-7b int8 cache B=1", 1, CONTEXT, 32, 32, 128, "int8", "full",
      None, 0),
     ("qwen2-7b gqa int8 cache", 4, CONTEXT, 28, 4, 128, "int8", "full", None,
@@ -950,10 +1043,16 @@ def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
     dt = time.perf_counter() - t0
     seen = counts()
     resident = resident_gb(qparams, mvdram)
-    want = cfg.num_layers * (NEW - 1)
+    kinds = stage_kinds(cfg)       # a hybrid's shared invocations too
+    per_step = len(kinds) - kinds.count("mamba")
+    want = per_step * (NEW - 1)
     if seen["launches"]["decode_attention"] != want:
         raise AssertionError(f"B4 launched {seen['launches']} times, not "
-                             f"{want} ({cfg.num_layers} a decode step)")
+                             f"{want} ({per_step} a decode step)")
+    for k, v in launches_per_pass(cfg, 4).items():
+        if seen["launches"][k] != v * NEW:
+            raise AssertionError(f"{k} launched {seen['launches'][k]} "
+                                 f"times, not {v * NEW} ({v} a pass)")
     # and a fold after each call whose plan splits the cache
     _, splits = dk.decode_plan(
         B, CONTEXT, cfg.attn.num_kv_heads,
@@ -994,22 +1093,28 @@ def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
     # any last-bit difference into a different code, and a one-ulp change of
     # a few cache entries moves these logits by a third of their size
     # (PERF.md §6). With float activations (B3 in every linear) they
-    # are held to 5 % of max|logit|, the rule of PERF.md §2.
+    # are held to 5 % of max|logit|, the rule of PERF.md §2; with Mamba2
+    # stages with float32 activations between the layers, where bf16 ones
+    # are chaotic (`ssm_float_check`).
+    fcfg = dataclasses.replace(cfg, dtype="float32") if cfg.ssm else cfg
+    runs = [("act_bits_4", 4, cfg), ("act_bits_None", None, fcfg)]
+    if cfg.ssm:                     # reported only: chaotic in bf16
+        runs.append(("act_bits_None_bf16", None, cfg))
     spread = {}
-    for ab in (4, None):
+    for key, ab, c in runs:
         got = steps if ab == 4 else teacher_forced(
-            Model(cfg, act_bits=None, impl=impl, kv_bits=8,
+            Model(c, act_bits=None, impl=impl, kv_bits=8,
                   attn_impl="kernel"), qparams, toks)
-        want_l = teacher_forced(Model(cfg, act_bits=ab, impl=impl,
-                                      kv_bits=8), qparams, toks)
+        want_l = teacher_forced(Model(c, act_bits=ab, impl=impl, kv_bits=8),
+                                qparams, toks)
         if not all(bool(torch.isfinite(g).all()) for g in got):
-            raise AssertionError(f"act_bits={ab}: non-finite logits")
-        spread[ab] = {
+            raise AssertionError(f"{key}: non-finite logits")
+        spread[key] = {
             "max_abs_err": [float((g - w).abs().max())
                             for g, w in zip(got, want_l)],
             "max_abs_logit": max(float(w.abs().max()) for w in want_l)}
     torch.cuda.synchronize()
-    sf = spread[None]
+    sf = spread["act_bits_None"]
     if max(sf["max_abs_err"]) > LOGIT_RTOL * sf["max_abs_logit"]:
         raise AssertionError(f"act_bits=None: B4 decode logits differ from "
                              f"sdpa's ({sf})")
@@ -1017,10 +1122,11 @@ def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
            "inputs_shape": list(toks.shape), "seconds": dt,
            "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
            **seen, "resident": resident, "kv_slots": CONTEXT,
+           "b4_calls_per_decode_step": per_step,
            "b4_vs_plain_on_path": {"calls": len(held),
                                    "max_abs_err": max(held)},
-           "decode_logits_vs_sdpa_act_bits_4": spread[4],
-           "decode_logits_vs_sdpa_act_bits_None": sf}
+           **{f"decode_logits_vs_sdpa_{k}": v for k, v in spread.items()},
+           "act_bits_None_activations": fcfg.dtype}
     emit(out)
     return out
 
@@ -1306,18 +1412,21 @@ def phase_expert_kernels() -> tuple:
 # phases 10-12: qwen2-moe-a2.7b at full width
 # ---------------------------------------------------------------------------
 
-def phase_zoo_model(arch: str):
+def phase_zoo_model(arch: str, layers: Optional[int] = None):
     """A configuration's serving parameters at full width, drawn and
     quantized one leaf (and one layer of a stacked leaf) at a time: the
     float model (qwen2-moe-a2.7b's 60.6 GB, deepseek-v2-lite-16b's 62.8 GB)
-    never lies on the card. Returns (config, parameters, the requests'
-    prompts: tokens, or frames (B, PROMPT + NEW, E) in the model's dtype
-    for a stubbed frontend)."""
+    never lies on the card. `layers` cuts the depth (never the width) to
+    keep the smoke in its time budget. Returns (config, parameters, the
+    requests' prompts: tokens, or frames (B, PROMPT + NEW, E) in the
+    model's dtype for a stubbed frontend)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import param_defs, stack_plan
     from repro_torch.serve.quantize import init_quantized_params
-    cfg = get_config(arch)
+    cfg = full = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1330,16 +1439,29 @@ def phase_zoo_model(arch: str):
     else:
         prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
                                 generator=gen, device="cuda")
-    a = cfg.attn
+    plan = stack_plan(cfg)
     line = {"phase": "model", "config": cfg.name, "layers": cfg.num_layers,
-            "first_dense": stack_plan(cfg).first, "d_model": cfg.d_model,
-            "d_ff": cfg.d_ff, "heads": a.num_heads, "kv_heads": a.num_kv_heads,
-            "head_dim": a.head_dim, "vocab": cfg.vocab_size,
+            "first_dense": plan.first, "d_model": cfg.d_model,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
             "tied_head": cfg.tie_embeddings, "inputs": cfg.input_mode,
             "weight_bits": cfg.weight_bits, "dtype": cfg.dtype,
-            "depth_cut": None, "setup_seconds": time.perf_counter() - t0,
+            "depth_cut": layers and {"layers": full.num_layers,
+                                     "served": layers},
+            "setup_seconds": time.perf_counter() - t0,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    if cfg.attn:
+        line |= {"heads": cfg.attn.num_heads,
+                 "kv_heads": cfg.attn.num_kv_heads,
+                 "head_dim": cfg.attn.head_dim}
+    if cfg.ssm:
+        line |= {"ssm": dataclasses.asdict(cfg.ssm), "d_inner": cfg.d_inner,
+                 "ssm_heads": cfg.ssm_heads}
+    if cfg.num_shared_blocks:
+        line |= {"shared_blocks": cfg.num_shared_blocks,
+                 "shared_every": cfg.shared_every,
+                 "shared_invocations": plan.repeats,
+                 "trailing": plan.trailing}
     if cfg.moe:
         line |= {"experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
                  "d_expert": cfg.moe.d_expert,
@@ -1612,10 +1734,29 @@ def main() -> int:
                             "slice_pixtral_12b_act_bits_4_kv8_attn_kernel")
     del zoo_params, zoo_prompts
     torch.cuda.empty_cache()
-    zoo, zoo_params, zoo_prompts = phase_zoo_model("deepseek-v2-lite-16b")
+    # deepseek at a third of its depth (a dense layer and 8 MoE of 26):
+    # its replays hold every stacked call against the plain version, the
+    # smoke's longest phases (PERF.md §5)
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("deepseek-v2-lite-16b",
+                                                   layers=DEEPSEEK_LAYERS)
     for ab in (None, 4):
         phase_moe_slice(zoo, zoo_params, zoo_prompts, ab, "deepseek_v2")
     del zoo_params
+    torch.cuda.empty_cache()
+
+    # the SSM and the hybrid at full width and depth
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("mamba2-1.3b")
+    for ab, folds in ((4, ("gemv_bs_fold",)), (None, ("gemv_f_fold",))):
+        phase_slice(zoo, zoo_params, zoo_prompts, ab, folds,
+                    {k: v * NEW for k, v in
+                     launches_per_pass(zoo, ab).items()},
+                    name=f"slice_mamba2_1_3b_act_bits_{ab}")
+    del zoo_params
+    torch.cuda.empty_cache()
+    zoo, zoo_params, zoo_prompts = phase_zoo_model("zamba2-7b")
+    phase_attn_kernel_slice(zoo, zoo_params, zoo_prompts,
+                            "slice_zamba2_7b_act_bits_4_kv8_attn_kernel")
+    del zoo_params, zoo_prompts
     torch.cuda.empty_cache()
 
     launches = {**s4["launches"]}

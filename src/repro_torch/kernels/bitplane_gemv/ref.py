@@ -13,10 +13,12 @@ ONE fused multiply-add per tile, in ascending tile order:
 
 which is what XLA does on the CPU for the JAX package's `out += corr·scale`.
 Here that step is emulated in float64: the product of two 24-bit
-significands is exact in float64, so `(corr·scale + out)` rounds once to
-float64 and once to float32 (a double rounding that differs from a true fma
-only when the float64 sum lands exactly on a float32 midpoint). The
-activation-scale multiply afterwards stays a separate float32 multiply.
+significands is exact in float64, and the sum `corr·scale + out` is rounded
+to odd in float64 (round to nearest, then, if the two-sum error is not
+zero, the neighbour toward the error whose last significand bit is 1)
+before the cast to float32. Rounding to odd with 53 ≥ 24 + 2 bits makes
+the two roundings one correctly rounded fma. The activation-scale multiply
+afterwards stays a separate float32 multiply.
 
 The integer dots run in float64 too: every partial sum is an integer far
 below 2^53, so they are exact, and float64 matmuls exist on both devices
@@ -45,15 +47,29 @@ def _unpack_codes(planes: torch.Tensor, q: int, dtype) -> torch.Tensor:
     return codes.reshape(*lead, w * 32, m)
 
 
+def fma_f32(c: torch.Tensor, s: torch.Tensor, o: torch.Tensor
+            ) -> torch.Tensor:
+    """Correctly rounded float32 fma(c, s, o) of float32 operands: the
+    exact product in float64, the sum rounded to odd in float64, then one
+    cast to float32."""
+    p = c.to(torch.float64) * s.to(torch.float64)         # exact
+    o = o.to(torch.float64)
+    r = p + o
+    t = r - p                                             # two-sum error
+    err = (p - (r - t)) + (o - t)
+    even = (r.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(r.dtype)
+    r = torch.where((err != 0) & even, torch.nextafter(r, toward), r)
+    return r.to(torch.float32)
+
+
 def _fma_chain(corr: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """corr (..., T, B, M) exact integers (float64), scales (..., T, 1, M)
     f32 → Σ_t in ascending order as `out = fma(f32(corr_t), scale_t, out)`."""
-    c32 = corr.to(torch.float32).to(torch.float64)
-    s64 = scales.to(torch.float64)
-    out = torch.zeros_like(c32[..., 0, :, :], dtype=torch.float32)
+    c32 = corr.to(torch.float32)
+    out = torch.zeros_like(c32[..., 0, :, :])
     for t in range(corr.shape[-3]):
-        out = (c32[..., t, :, :] * s64[..., t, :, :]
-               + out.to(torch.float64)).to(torch.float32)
+        out = fma_f32(c32[..., t, :, :], scales[..., t, :, :], out)
     return out
 
 

@@ -6,6 +6,8 @@ kernels (the paper's deployment mode). Port of the JAX package's
         --tiny --quantized --bits 2 --act-bits 4 --tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-moe-a2.7b --quantized --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --tiny --quantized --act-bits 4 --tokens 8 --device cpu
 
 Runs on the GPU unless `--device cpu` is given. Quantized serving draws and
 quantizes the weights one leaf at a time (`init_quantized_params`), so a

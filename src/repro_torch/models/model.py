@@ -1,22 +1,25 @@
-"""Decoder LM (port of the JAX package's `models/model.py`) for attention
-stacks — GQA or MLA, with dense or mixture-of-experts FFNs, token or
-embedding inputs, a separate or a tied output head: the paper's llama2-7b
-and every attention architecture of the JAX package's zoo.
+"""Decoder LM (port of the JAX package's `models/model.py`): stacks of
+attention stages — GQA or MLA, with dense or mixture-of-experts FFNs — and
+of Mamba2 stages, token or embedding inputs, a separate or a tied output
+head: the paper's llama2-7b and every architecture of the JAX package's
+zoo.
 
-Parameters keep the JAX package's layout: the leading dense-FFN layers
-(deepseek's `first`) and each pattern stage have their parameters stacked
-along a leading "stack" axis, and so do their decode caches. The JAX
-package runs a `lax.scan` over that axis; here it is a Python loop over
-layers. Three entry points:
+Parameters keep the JAX package's layout, each stack's parameters stacked
+along a leading "stack" axis, and so are their decode caches:
+  first    — leading dense-FFN attention layers (deepseek)
+  stages   — the repeating pattern, one entry per pattern stage
+  shared   — the hybrid's (zamba2) shared attention blocks, invoked after
+             every pattern group: invocation r reads parameters
+             shared[r mod num_shared_blocks] but its own cache shared[r]
+  trailing — remainder layers (zamba2: 81 = 13·6 + 3)
+The JAX package runs a `lax.scan` over each stack; here it is a Python
+loop over layers. Three entry points:
   forward(params, batch)                 → logits  [scoring]
   prefill(params, batch, max_seq)        → logits, cache
   decode_step(params, cache, inp, pos)   → logits, cache   [one token]
 A batch holds "tokens" (B, S), or "embeddings" (B, S, E) for a config
 whose frontend is stubbed (`input_mode="embeddings"`); `inp` is then (B,)
 tokens or (B, E) embeddings.
-
-SSM and hybrid configurations wait for their port (ROADMAP A7) and raise
-`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import embed, ffn, lm_head, norm, softcap
 from .params import ParamDef, init_params  # noqa: F401  (re-exported)
@@ -38,15 +42,17 @@ SERVE_CAPACITY = 2.0
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the configuration kinds the port does not have yet."""
-    what = [name for name, on in (
-        ("SSM stages", cfg.ssm is not None or "mamba" in cfg.pattern),
-        ("hybrid shared blocks", cfg.num_shared_blocks > 0)) if on]
-    if what or cfg.attn is None:
+    """Raise for a configuration with attention stages (or hybrid shared
+    blocks) but no attention config, or Mamba2 stages but no SSM
+    config."""
+    attention = (any(k != "mamba" for k in cfg.pattern)
+                 or cfg.num_shared_blocks > 0)
+    if attention and cfg.attn is None:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what) or 'no attention config'} not "
-            f"ported yet (ROADMAP A7); the port serves attention stacks "
-            f"(GQA or MLA) with dense or MoE FFNs")
+            f"{cfg.name}: attention stages with no attention config")
+    if "mamba" in cfg.pattern and cfg.ssm is None:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 stages with no SSM config")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +68,10 @@ class StackPlan:
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.shared_every
+        return StackPlan(first=0, repeats=groups,
+                         trailing=cfg.num_layers - groups * cfg.shared_every)
     first = cfg.moe.first_dense if cfg.moe else 0
     body = cfg.num_layers - first
     if body % len(cfg.pattern):
@@ -158,8 +168,28 @@ def _moe_defs(cfg: ModelConfig, stack):
     return d
 
 
-def _stage_defs(cfg: ModelConfig, stack, use_moe: bool,
+def _mamba_defs(cfg: ModelConfig, stack):
+    e, s = cfg.d_model, cfg.ssm
+    di, h = cfg.d_inner, cfg.ssm_heads
+    conv_ch = di + 2 * s.n_groups * s.d_state
+    proj_out = 2 * di + 2 * s.n_groups * s.d_state + h
+    return {
+        "in_proj": _stk(stack, (e, proj_out), ("embed", "inner")),
+        "conv_w": _stk(stack, (s.d_conv, conv_ch), ("conv", "inner")),
+        "conv_b": _stk(stack, (conv_ch,), ("inner",), init="zeros"),
+        "dt_bias": _stk(stack, (h,), ("state",), init="zeros"),
+        "a_log": _stk(stack, (h,), ("state",), init="arange_neg"),
+        "d_skip": _stk(stack, (h,), ("state",), init="ones"),
+        "out_norm": {"scale": _stk(stack, (di,), ("inner",), init="zeros")},
+        "out_proj": _stk(stack, (di, e), ("inner", "embed")),
+    }
+
+
+def _stage_defs(cfg: ModelConfig, kind: str, stack, use_moe: bool,
                 dense_d_ff: Optional[int] = None):
+    if kind == "mamba":
+        return {"ln": _norm_defs(cfg, stack),
+                "mamba": _mamba_defs(cfg, stack)}
     d = {"ln1": _norm_defs(cfg, stack), "attn": _attn_defs(cfg, stack),
          "ln2": _norm_defs(cfg, stack)}
     if use_moe:
@@ -175,18 +205,27 @@ def _stage_defs(cfg: ModelConfig, stack, use_moe: bool,
 def param_defs(cfg: ModelConfig):
     """The JAX package's tree: `embed` only where tokens come in or the
     head is tied to it, `lm_head` only where it is not; `first` only where
-    the config has leading dense-FFN layers."""
+    the config has leading dense-FFN layers; `shared` (one entry per
+    parameter set) and `trailing` only for a hybrid."""
     plan = stack_plan(cfg)
+    use_moe = cfg.moe is not None
     defs: dict = {}
     if cfg.input_mode == "tokens" or cfg.tie_embeddings:
         defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model),
                                  ("vocab", "embed"))
     if plan.first:
-        defs["first"] = _stage_defs(cfg, (plan.first,), use_moe=False,
+        defs["first"] = _stage_defs(cfg, cfg.pattern[0], (plan.first,),
+                                    use_moe=False,
                                     dense_d_ff=cfg.moe.first_dense_d_ff)
-    defs["stages"] = {str(i): _stage_defs(cfg, (plan.repeats,),
-                                          cfg.moe is not None)
-                      for i in range(len(cfg.pattern))}
+    defs["stages"] = {str(i): _stage_defs(cfg, kind, (plan.repeats,),
+                                          use_moe)
+                      for i, kind in enumerate(cfg.pattern)}
+    if cfg.num_shared_blocks:
+        defs["shared"] = _stage_defs(cfg, "attn", (cfg.num_shared_blocks,),
+                                     use_moe=False)
+    if plan.trailing:
+        defs["trailing"] = _stage_defs(cfg, cfg.pattern[0], (plan.trailing,),
+                                       use_moe)
     defs["final_norm"] = _norm_defs(cfg, ())
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
@@ -210,11 +249,16 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.attn.sliding_window if kind == "local" else None
 
 
+#: the stacks that sit at the top of a parameter or cache tree; the
+#: pattern stages sit under "stages", by their index
+_TOP_STACKS = ("first", "shared", "trailing")
+
+
 def _stack(tree, name: str):
     """The stacked subtree of a parameter or cache tree that holds the
-    layer stack `name`: "first" (the leading dense-FFN layers) or a pattern
-    stage's index."""
-    return tree["first"] if name == "first" else tree["stages"][name]
+    layer stack `name`: "first", "shared", "trailing" or a pattern stage's
+    index."""
+    return tree[name] if name in _TOP_STACKS else tree["stages"][name]
 
 
 def _finish_stage(x, h, p, cfg: ModelConfig, act_bits, impl,
@@ -265,8 +309,11 @@ class Model:
         return getattr(torch, self.cfg.dtype)
 
     def _layers(self, params):
-        """(layer params, stack name, index in the stack, kind) in layer
-        order: the leading dense-FFN layers, then the pattern repeats."""
+        """(layer params, stack name, index in the stack's cache, kind) in
+        layer order: the leading dense-FFN layers, then each pattern
+        group's stages followed by its shared-block invocation (group r
+        reads parameter set r mod num_shared_blocks and cache r), then the
+        trailing layers."""
         cfg, plan = self.cfg, stack_plan(self.cfg)
         for r in range(plan.first):
             yield layer_params(params["first"], r), "first", r, cfg.pattern[0]
@@ -274,6 +321,13 @@ class Model:
             for i, kind in enumerate(cfg.pattern):
                 yield (layer_params(params["stages"][str(i)], r), str(i), r,
                        kind)
+            if cfg.num_shared_blocks:
+                yield (layer_params(params["shared"],
+                                    r % cfg.num_shared_blocks),
+                       "shared", r, "attn")
+        for r in range(plan.trailing):
+            yield (layer_params(params["trailing"], r), "trailing", r,
+                   cfg.pattern[0])
 
     def _embed_in(self, params, batch):
         """batch["embeddings"] (a stubbed frontend's) in the model's dtype,
@@ -317,6 +371,11 @@ class Model:
         ab, impl = self.act_bits, self.impl
         aux = torch.zeros((), device=x.device)
         for p, _name, _r, kind in self._layers(params):
+            if kind == "mamba":
+                h, _ = ssm_mod.mamba_forward(norm(x, p["ln"], cfg.norm_type),
+                                             p["mamba"], cfg, ab, impl)
+                x = x + h
+                continue
             h = self._attention(norm(x, p["ln1"], cfg.norm_type), p, kind,
                                 positions)
             x, a = _finish_stage(x, h, p, cfg, ab, impl)
@@ -334,6 +393,8 @@ class Model:
     def _layer_cache(self, kind: str, batch: int, max_seq: int, dtype,
                      device) -> dict:
         cfg = self.cfg
+        if kind == "mamba":
+            return ssm_mod.mamba_cache_init(batch, cfg, dtype, device)
         if cfg.mla is not None:
             return attn_mod.mla_cache_init(batch, max_seq, cfg.mla, dtype,
                                            device)
@@ -352,6 +413,11 @@ class Model:
             cache["first"] = stacked(cfg.pattern[0], plan.first)
         cache["stages"] = {str(i): stacked(kind, plan.repeats)
                            for i, kind in enumerate(cfg.pattern)}
+        if cfg.num_shared_blocks:
+            # one cache per invocation, not per parameter set
+            cache["shared"] = stacked("attn", plan.repeats)
+        if plan.trailing:
+            cache["trailing"] = stacked(cfg.pattern[0], plan.trailing)
         return cache
 
     # -- decode ------------------------------------------------------------------
@@ -368,6 +434,11 @@ class Model:
         ab, impl = self.act_bits, self.impl
         for p, name, r, kind in self._layers(params):
             c = layer_params(_stack(cache, name), r)
+            if kind == "mamba":
+                h, _ = ssm_mod.mamba_decode(norm(x, p["ln"], cfg.norm_type),
+                                            p["mamba"], cfg, c, ab, impl)
+                x = x + h
+                continue
             h = norm(x, p["ln1"], cfg.norm_type)
             if cfg.mla is not None:
                 h, _ = attn_mod.mla_decode(h, p["attn"], cfg.attn, cfg.mla,
@@ -383,9 +454,12 @@ class Model:
     # -- prefill -------------------------------------------------------------------
 
     def _kv_to_cache(self, kind: str, kv, max_seq: int) -> dict:
-        """Full-sequence attention products → position-stamped decode
-        cache: MLA's (c_kv, k_rope) in slots 0..s−1, GQA's (k, v) in the
-        ring of the stage's slots."""
+        """A stage's full-sequence products → its decode cache: a Mamba2
+        stage's is the one `mamba_forward` returned; MLA's (c_kv, k_rope)
+        go in slots 0..s−1, GQA's (k, v) in the ring of the stage's slots,
+        each stamped with its position."""
+        if kind == "mamba":
+            return kv
         if self.cfg.mla is not None:
             c_kv, k_rope = kv
             b, s = c_kv.shape[:2]
@@ -425,16 +499,23 @@ class Model:
         ab, impl = self.act_bits, self.impl
         per_stack: dict = {}
         for p, name, _r, kind in self._layers(params):
-            h, kv = self._attention(norm(x, p["ln1"], cfg.norm_type), p,
-                                    kind, positions, return_kv=True)
+            if kind == "mamba":
+                h, kv = ssm_mod.mamba_forward(
+                    norm(x, p["ln"], cfg.norm_type), p["mamba"], cfg, ab,
+                    impl)
+                x = x + h
+            else:
+                h, kv = self._attention(norm(x, p["ln1"], cfg.norm_type), p,
+                                        kind, positions, return_kv=True)
+                x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
             per_stack.setdefault(name, []).append(
                 self._kv_to_cache(kind, kv, max_seq))
-            x, _ = _finish_stage(x, h, p, cfg, ab, impl, SERVE_CAPACITY)
-        stacked = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
-                   for name, cs in per_stack.items()}
-        cache = {"stages": {n: c for n, c in stacked.items()
-                            if n != "first"}}
-        if "first" in stacked:
-            cache["first"] = stacked["first"]
+        cache: dict = {"stages": {}}
+        for name, cs in per_stack.items():
+            c = {k: torch.stack([one[k] for one in cs]) for k in cs[0]}
+            if name in _TOP_STACKS:
+                cache[name] = c
+            else:
+                cache["stages"][name] = c
         x = norm(x, params["final_norm"], cfg.norm_type)
         return self._logits(params, x[:, -1:])[:, 0], cache

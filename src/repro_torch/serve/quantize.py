@@ -18,9 +18,9 @@ from ..core.quant import QuantSpec
 from ..models.params import ParamDef, init_params
 
 # weight-leaf basenames served by the bit-plane engine (the JAX package's
-# set; in_proj/out_proj are the SSM's, whose port is still to come). MLA's
-# w_uk/w_uv stay float: the absorbed decode contracts them per head in
-# float32 einsums, not through `dense`
+# set; in_proj/out_proj are a Mamba2 stage's, whose conv, dt, A, D and out
+# norm leaves stay float). MLA's w_uk/w_uv stay float: the absorbed decode
+# contracts them per head in float32 einsums, not through `dense`
 QUANT_LEAF_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "w_dkv",
     "up", "gate", "down", "shared_up", "shared_gate", "shared_down",

@@ -378,17 +378,31 @@ def test_serve_cli_runs_deepseek_on_cpu(capsys):
 
 # -- what is still refused ---------------------------------------------------
 
+TINY_SSM = SSMConfig(d_state=16, head_dim=16, chunk=8)
+
+
 @pytest.mark.parametrize("what,change", [
-    ("SSM stages", dict(ssm=SSMConfig(), pattern=("mamba",))),
-    ("SSM stages", dict(pattern=("attn", "mamba"), num_layers=4)),
+    ("SSM stages", dict(ssm=TINY_SSM, pattern=("mamba",))),
+    ("SSM stages", dict(ssm=TINY_SSM, pattern=("attn", "mamba"),
+                        num_layers=4)),
     ("hybrid shared blocks", dict(num_shared_blocks=2, shared_every=1)),
     ("no attention config", dict(attn=None, mla=None)),
 ])
 def test_check_supported_refuses_only_ssm_and_hybrid(what, change):
+    """SSM stages and hybrid shared blocks are ported now: the model and
+    its tree build (beside MLA stages too); only attention stages with no
+    attention config are refused."""
     cfg = dataclasses.replace(tiny_config(ARCH), moe=None, **change)
-    with pytest.raises(NotImplementedError, match=what):
-        Model(cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        param_defs(cfg)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("mamba2-1.3b")
+    assert get_config("mamba2-1.3b").name == "mamba2-1.3b"
+    if what == "no attention config":
+        with pytest.raises(NotImplementedError, match=what):
+            Model(cfg)
+        with pytest.raises(NotImplementedError, match=what):
+            param_defs(cfg)
+        return
+    Model(cfg)
+    defs = param_defs(cfg)
+    kinds = {"mamba" if "mamba" in d else "attn"
+             for d in defs["stages"].values()}
+    assert kinds == set(cfg.pattern)
+    assert ("shared" in defs) == (what == "hybrid shared blocks")

@@ -224,8 +224,13 @@ def test_flash_attention_matches_jax_and_direct(rng, window):
 
 
 def test_unported_configs_raise():
-    """Embedding inputs are ported now; hybrid shared blocks are not."""
+    """Embedding inputs and hybrid shared blocks are ported now (the
+    shared block's parameters stacked over its two sets); attention
+    stages with no attention config are refused."""
     cfg = tiny_config("llama2-7b")
     Model(dataclasses.replace(cfg, input_mode="embeddings"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        Model(dataclasses.replace(cfg, num_shared_blocks=2, shared_every=1))
+    hybrid = dataclasses.replace(cfg, num_shared_blocks=2, shared_every=1)
+    Model(hybrid)
+    assert param_defs(hybrid)["shared"]["attn"]["wq"].shape[0] == 2
+    with pytest.raises(NotImplementedError, match="no attention config"):
+        Model(dataclasses.replace(cfg, attn=None))

@@ -151,16 +151,20 @@ def _def_leaves(tree, path=()):
 
 
 def test_mla_and_ssm_configs_still_raise():
-    """MLA and leading dense-FFN layers are ported now (a MoE config takes
-    them); SSM stages still raise."""
+    """MLA, leading dense-FFN layers and SSM stages are all ported now (a
+    MoE config takes them); a Mamba2 stage needs an SSM config."""
     cfg = tiny_config(ARCH)
     for ok in (dataclasses.replace(cfg, mla=MLAConfig()),
                dataclasses.replace(cfg, moe=dataclasses.replace(
-                   cfg.moe, first_dense=1, first_dense_d_ff=96))):
+                   cfg.moe, first_dense=1, first_dense_d_ff=96)),
+               dataclasses.replace(cfg, ssm=SSMConfig(), pattern=("mamba",))):
         Model(ok)
         assert set(param_defs(ok)) >= {"stages", "lm_head"}
-    with pytest.raises(NotImplementedError, match="A7"):
-        Model(dataclasses.replace(cfg, ssm=SSMConfig(), pattern=("mamba",)))
+    assert "mamba" in param_defs(dataclasses.replace(
+        cfg, ssm=SSMConfig(), pattern=("mamba",)))["stages"]["0"]
+    assert get_config("mamba2-1.3b").ssm == SSMConfig()
+    with pytest.raises(NotImplementedError, match="no SSM config"):
+        Model(dataclasses.replace(cfg, pattern=("mamba",)))
 
 
 # -- router, capacity -------------------------------------------------------
