@@ -59,6 +59,28 @@ Phases, each printing one JSON line:
      act_bits=None (B3) and act_bits=4 slices once more (8 new tokens)
      under torch.profiler, one line with both runs' device busy share and
      top kernels;
+  7a. continuous batching, act_bits=4: `serve.ContinuousBatcher` on
+     `ServeEngine(quantized=True)` serves 8 requests (prompts of 5 to 32
+     tokens from seed 0, 4 to 16 new tokens each) over the 4 lanes,
+     prompts streamed in chunks of 8 through the decode path, all
+     submitted at once so lanes recycle: with a bf16 cache and `sdpa`
+     attention, then with an int8 cache of 4096 slots and the engine's
+     model swapped for one with `attn_impl="kernel"` (B4, lanes at
+     positions up to 32 apart). Counts zeroed just before `run()`: B1
+     and B2 (and B4) exactly `launches_per_pass` times each decode step,
+     their folds ran, no plain version. Every request done with its
+     max_new tokens; the shortest, the longest and the first request
+     admitted into a recycled lane each equal to serving it alone in a
+     fresh batcher of 4 lanes; in one tick every frozen lane's rows of
+     every cache leaf held bitwise across each step it sits frozen in
+     (and every B4 call of the tick held against its plain version), and
+     a free lane holding its last request's state held bitwise across a
+     whole tick. Reports ticks, program ticks, occupancy, tokens/s, wall
+     per tick, the host's waits on the device a tick (sync debug mode),
+     peak and allocated memory, and the wall of one decode step taken in
+     turns as `Model.decode_step` alone, as the batcher's step with no
+     lane frozen and with every lane frozen (the undo log at its
+     largest), beside the card's name and power limit;
   8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
@@ -120,6 +142,9 @@ Phases, each printing one JSON line:
      is held with float32 activations between the layers (bf16 ones make
      the SSM chaotic: the plain model's own move under a 1e-6 nudge of
      every B3 output is reported beside it);
+ 16a. continuous batching on mamba2-1.3b, act_bits=4: phase 7a's
+     traffic and checks, B1 96 times a decode step and no B2, the conv
+     and SSM state rows reset on admission and undone for frozen lanes;
  17. slice, zamba2-7b at full width (81 Mamba2 layers and 13 invocations
      of two shared attention blocks, 32 heads of 112, q4): phase 6's
      checks through `Model`, B1 189 and B2 26 a pass, B4 13 times a
@@ -1155,6 +1180,257 @@ def phase_profile(cfg, qparams) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 7a and 16a: continuous batching
+# ---------------------------------------------------------------------------
+
+# the batcher phases' traffic: 8 requests over the B lanes, submitted at
+# once (so lanes recycle mid-run), prompts streamed in chunks of 8
+BATCH_PROMPTS = (5, 9, 12, 16, 20, 24, 28, 32)
+BATCH_NEW = (16, 4, 12, 8, 16, 6, 10, 5)
+BATCH_CHUNK = 8
+BATCH_MAX_SEQ = 64         # the horizon of the phases without B4
+
+
+def batcher_requests(cfg) -> list:
+    """(prompt, max_new) of the batcher traffic, tokens from seed 0."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED)
+    return [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+             m) for n, m in zip(BATCH_PROMPTS, BATCH_NEW)]
+
+
+def batcher(eng, reqs, rids=None):
+    """A fresh `ContinuousBatcher` on `eng` with the requests `rids` (all
+    by default) submitted."""
+    from repro_torch.serve import ContinuousBatcher, Request
+    b = ContinuousBatcher(eng.cfg, None, engine=eng,
+                          prefill_chunk=BATCH_CHUNK)
+    for i, (p, m) in enumerate(reqs):
+        if rids is None or i in rids:
+            b.submit(Request(rid=i, prompt=p, max_new=m))
+    return b
+
+
+def lane_rows(cache, lanes) -> dict:
+    """Copies of the lanes' rows of every cache leaf, by (lane, path)."""
+    from repro_torch.serve.engine import cache_leaves
+    return {(i, path): leaf.select(axis, i).clone() for i in lanes
+            for path, leaf, axis, _ in cache_leaves(cache)}
+
+
+def held_rows(what, cache, rows) -> int:
+    """Fails unless every row of `rows` is bitwise what `cache` holds."""
+    import torch
+    now = lane_rows(cache, sorted({i for i, _ in rows}))
+    for key, want in rows.items():
+        if not torch.equal(now[key], want):
+            raise AssertionError(f"{what}: lane {key[0]}'s {key[1]} moved "
+                                 f"while it was frozen")
+    return len(rows)
+
+
+def checked_tick(b, replay_b4: bool) -> dict:
+    """One tick of `b` in which each lane frozen at a step is held to keep
+    every cache leaf bitwise across that step, and (`replay_b4`) each B4
+    call is held against its plain version on the same inputs."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    real_step, real_b4 = b._step, dops.decode_attention
+    seen = {"frozen_lane_steps": 0, "leaf_rows_held": 0, "b4": []}
+
+    def step(tok, pos, frozen):
+        rows = lane_rows(b.cache, frozen)
+        logits = real_step(tok, pos, frozen)
+        seen["leaf_rows_held"] += held_rows("frozen step", b.cache, rows)
+        seen["frozen_lane_steps"] += len(frozen)
+        return logits
+
+    def b4(*args, impl="kernel", **kw):
+        got = real_b4(*args, impl=impl, **kw)
+        seen["b4"].append(_held("decode_attention in a batcher tick", got,
+                                real_b4(*args, impl="reference", **kw)))
+        return got
+
+    b._step = step
+    if replay_b4:
+        dops.decode_attention = b4
+    try:
+        b.tick()
+    finally:
+        del b._step                     # the class's method again
+        dops.decode_attention = real_b4
+    return seen
+
+
+def step_ms(b) -> dict:
+    """Wall of one decode step (synchronized, the median of 6 taken in
+    turns): `Model.decode_step` alone at one int position, as
+    `ServeEngine.generate` calls it; the batcher's `_step` with no lane
+    frozen; and with every lane frozen, the undo log at its largest. The
+    steps write b's cache, which is thrown away after."""
+    import statistics
+    import torch
+    tok = torch.zeros(B, dtype=torch.long, device=b.device)
+    pos = torch.full((B,), b.max_seq - 1, dtype=torch.long, device=b.device)
+    runs = {
+        "decode_step_ms": lambda: b.model.decode_step(
+            b.params, b.cache, tok, b.max_seq - 1),
+        "batcher_step_ms_no_lane_frozen": lambda: b._step(tok, pos, ()),
+        "batcher_step_ms_every_lane_frozen": lambda: b._step(
+            tok, pos, tuple(range(B)))}
+    times = {k: [] for k in runs}
+    with torch.no_grad():
+        for _ in range(6):
+            for k, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
+                  attn_kernel=False, must_run=()) -> dict:
+    """`ContinuousBatcher` at act_bits=4 on `ServeEngine(quantized=True)`
+    (with `attn_kernel`: an int8 cache, the engine's model swapped for one
+    with `attn_impl="kernel"`, attention through B4). The counts are zeroed
+    just before `run()` and read just after: every launch count exact per
+    decode step, no plain version. Then: every request done with max_new
+    tokens; the shortest, the longest and the first request admitted into
+    a recycled lane each equal to serving it alone in a fresh batcher;
+    one tick with every frozen lane's rows held bitwise at each step (and
+    each B4 call against its plain version), and a whole tick of a free
+    lane that holds its last request's state."""
+    import torch
+    import warnings
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    kv_bits = 8 if attn_kernel else None
+    eng = ServeEngine(cfg, qparams, max_seq=max_seq, batch_slots=B,
+                      quantized=True, act_bits=4, kv_bits=kv_bits,
+                      device="cuda")
+    if attn_kernel:
+        eng.model = Model(cfg, act_bits=4, impl=eng.model.impl,
+                          kv_bits=kv_bits, attn_impl="kernel")
+    reqs = batcher_requests(cfg)
+    warm = batcher(eng, [(reqs[0][0], 2)])      # packs B2's member tables
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = batcher(eng, reqs)
+    reset_counts()
+    # every wait of the host on the device in the run, as the sync debug
+    # mode reports it (the batcher reads the next tokens once a tick)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            done = b.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen = counts()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if sorted(r.rid for r in done) != list(range(len(reqs))) or not all(
+            r.done and len(r.out) == reqs[r.rid][1] for r in done):
+        raise AssertionError(f"{name}: requests not served in full "
+                             f"{[(r.rid, r.done, len(r.out)) for r in done]}")
+    if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError(f"{name}: tokens outside the vocabulary")
+    want = {k: v * b.decode_steps
+            for k, v in launches_per_pass(cfg, 4).items()}
+    per_step = 0
+    if attn_kernel:
+        kinds = stage_kinds(cfg)
+        per_step = len(kinds) - kinds.count("mamba")
+        _, splits = dk.decode_plan(
+            B, max_seq, cfg.attn.num_kv_heads,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        want["decode_attention"] = per_step * b.decode_steps
+        want["decode_attention_fold"] = want["decode_attention"] * (
+            splits > 1)
+    for k, v in want.items():
+        if seen["launches"][k] != v:
+            raise AssertionError(f"{name}: {k} launched "
+                                 f"{seen['launches'][k]} times, not {v} "
+                                 f"({b.decode_steps} decode steps)")
+    for k in must_run:
+        if seen["launches"][k] <= 0:
+            raise AssertionError(f"{name}: {k} never launched ({seen})")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"{name}: a plain version ran on the card "
+                             f"({seen})")
+    stats = {
+        "ticks": b.ticks, "program_ticks": b.program_ticks,
+        "decode_steps": b.decode_steps,
+        "occupancy_ticks": {str(k): v for k, v in
+                            sorted(b.occupancy_ticks.items())},
+        "tokens_out": b.tokens_out, "seconds": dt,
+        "tokens_per_s": b.tokens_out / dt,
+        "wall_per_tick_ms": dt / b.ticks * 1e3,
+        "wall_per_decode_step_ms": dt / b.decode_steps * 1e3,
+        "host_syncs_per_tick": syncs / b.ticks,
+        "sim_time_s": b.sim_time_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    out = {r.rid: r.out for r in done}
+    # interleaved equals solo: the shortest and the longest prompt, and
+    # the first request admitted into a recycled lane (rid B)
+    solo = {}
+    for rid in sorted({BATCH_PROMPTS.index(min(BATCH_PROMPTS)),
+                       BATCH_PROMPTS.index(max(BATCH_PROMPTS)), B}):
+        (alone,) = batcher(eng, reqs, {rid}).run()
+        solo[rid] = alone.out
+        if alone.out != out[rid]:
+            raise AssertionError(f"{name}: request {rid} served alone gave "
+                                 f"{alone.out}, interleaved {out[rid]}")
+    del b
+    # frozen lanes: tick 1 of the first B requests has lanes frozen inside
+    # the others' prefill chunks; then, once one lane is free (holding its
+    # request's state), a whole tick of it
+    c = batcher(eng, reqs, set(range(B)))
+    c.tick()
+    steps_before = c.decode_steps
+    step_check = checked_tick(c, attn_kernel)
+    tick_steps = c.decode_steps - steps_before
+    if not step_check["frozen_lane_steps"]:
+        raise AssertionError(f"{name}: no lane frozen in the checked tick")
+    if attn_kernel and len(step_check["b4"]) != per_step * tick_steps:
+        raise AssertionError(f"{name}: {len(step_check['b4'])} B4 calls "
+                             f"held in the tick, not {per_step} a step")
+    while all(not lane.free for lane in c.lanes):
+        c.tick()
+    free = [i for i, lane in enumerate(c.lanes) if lane.free]
+    rows = lane_rows(c.cache, free)
+    c.tick()
+    tick_rows = held_rows(f"{name}: a free lane's tick", c.cache, rows)
+    stats |= step_ms(c)
+    del c
+    torch.cuda.synchronize()
+    line = {
+        "phase": name, "card": nvidia_smi(), "lanes": B,
+        "requests": len(reqs), "prompt_lens": list(BATCH_PROMPTS),
+        "max_new": list(BATCH_NEW), "prefill_chunk": BATCH_CHUNK,
+        "max_seq": max_seq, "kv_bits": kv_bits,
+        "attn_impl": eng.model.attn_impl, **stats, **seen,
+        "interleaved_equals_solo": sorted(solo),
+        "frozen_check": {
+            "tick_frozen_lane_steps": step_check["frozen_lane_steps"],
+            "tick_leaf_rows_held": step_check["leaf_rows_held"],
+            "free_lanes_held_a_whole_tick": free,
+            "free_lane_leaf_rows_held": tick_rows},
+        "b4_vs_plain_in_tick": {
+            "calls": len(step_check["b4"]),
+            "max_abs_err": max(step_check["b4"])} if attn_kernel else None}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the baseline, every linear a QuantizedTensor through B5
 # ---------------------------------------------------------------------------
 
@@ -1701,6 +1977,13 @@ def main() -> int:
     sa = phase_attn_kernel_slice(cfg, qparams, prompts,
                                  "slice_act_bits_4_kv8_attn_kernel")
     phase_profile(cfg, qparams)
+    llama_b1 = ("gemv_bs", "gemv_bs_fold", "program_gemv",
+                "program_gemv_fold")
+    phase_batcher(cfg, qparams, "batcher_llama2_7b_act_bits_4",
+                  must_run=llama_b1)
+    phase_batcher(cfg, qparams,
+                  "batcher_llama2_7b_act_bits_4_kv8_attn_kernel",
+                  max_seq=CONTEXT, attn_kernel=True, must_run=llama_b1)
     del qparams                       # the baseline needs the float weights
     torch.cuda.empty_cache()
     sb = phase_baseline_slice(cfg, prompts)
@@ -1751,6 +2034,8 @@ def main() -> int:
                     {k: v * NEW for k, v in
                      launches_per_pass(zoo, ab).items()},
                     name=f"slice_mamba2_1_3b_act_bits_{ab}")
+    phase_batcher(zoo, zoo_params, "batcher_mamba2_1_3b_act_bits_4",
+                  must_run=("gemv_bs", "gemv_bs_fold"))
     del zoo_params
     torch.cuda.empty_cache()
     zoo, zoo_params, zoo_prompts = phase_zoo_model("zamba2-7b")

@@ -1,6 +1,7 @@
 """Serving engine (port of the JAX package's `serve/engine.py`): batched
 prefill + per-token decode over fixed lanes, optionally with bit-plane
-weights.
+weights, and the axis map of the decode cache's leaves that the continuous
+batcher (`serve/scheduler.py`) resets and freezes lanes through.
 
 Quantized serving swaps every GeMV-shaped leaf for packed `BitplaneWeights`
 and routes the model's linears through `core.engine.EngineLinear`. On the
@@ -11,9 +12,11 @@ default (kernel) backend, each decode step runs:
 
 Decode is the JAX package's per-token loop (its `scan=False` oracle); the
 bucketed masked scan has no counterpart here. The KV cache is updated in
-place. The DRAM residency session (`_place_model`), the compiled
-`decode_program` and the DDR4 pricing of decode ticks wait for the
-simulator's port (ROADMAP A9).
+place. Requests of different lengths share the lanes through
+`serve.scheduler.ContinuousBatcher`. The DRAM residency session
+(`_place_model`), the compiled `decode_program` and the DDR4 pricing of
+decode ticks (the batcher's priced clock) wait for the simulator's port
+(ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -29,6 +32,36 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import Model
 from .quantize import quantize_params
+
+
+#: the axes of each decode-cache leaf of one layer (the JAX package's
+#: `_CACHE_AXES`); a leaf of the stacked layout ("first", "stages",
+#: "shared", "trailing") has its stack axes in front of these
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "c_kv": ("batch", "kv_seq", None),
+    "k_rope": ("batch", "kv_seq", None),
+    "positions": ("batch", "kv_seq"),
+    "conv": ("batch", None, "inner"),
+    "ssm": ("batch", "inner", None, None),
+    "k_scale": ("batch", "kv_seq", "kv_heads"),
+    "v_scale": ("batch", "kv_seq", "kv_heads"),
+}
+
+
+def cache_leaves(cache, path=()):
+    """Every leaf of a decode-cache tree as (path, leaf, lane axis, kv_seq
+    axis or None), the axes counted behind the leaf's leading stack
+    axes."""
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            yield from cache_leaves(v, path + (k,))
+        return
+    axes = CACHE_AXES[path[-1]]
+    lead = cache.ndim - len(axes)
+    seq = lead + axes.index("kv_seq") if "kv_seq" in axes else None
+    yield path, cache, lead + axes.index("batch"), seq
 
 
 @dataclasses.dataclass
@@ -80,7 +113,9 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, prompts, max_new: int = 32, temperature: float = 0.0,
                  seed: int = 0, max_new_per_lane=None) -> torch.Tensor:
-        """prompts: int (B, S0), B ≤ slots, equal-length prompts. Returns
+        """prompts: int (B, S0), B ≤ slots, equal-length prompts (requests
+        of different lengths go through `serve.scheduler.ContinuousBatcher`,
+        which shares the lanes between them). Returns
         (B, S0 + max_new) tokens. `max_new_per_lane` (optional (B,) ints ≤
         max_new) caps lanes individually: a lane past its budget re-emits
         its last token (a 0-budget lane its final prompt token)."""

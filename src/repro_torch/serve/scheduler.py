@@ -1,0 +1,307 @@
+"""Continuous batching (port of the JAX package's `serve/scheduler.py`):
+requests of DIFFERENT lengths share the decode lanes.
+
+Every scheduler tick runs `trip` decode steps of `Model.decode_step` over
+all lanes, a Python loop where the JAX package runs one masked jitted scan:
+
+  * a lane in PREFILL phase streams its prompt in CHUNKS: up to
+    `prefill_chunk` tokens advance through the decode path in one tick,
+    interleaved with other lanes' generation;
+  * a lane in DECODE phase feeds its previously sampled token (one step);
+  * a FREE lane, or a lane whose step budget for this tick is exhausted,
+    is FROZEN at that step: its step is computed (token 0 at position
+    max_seq − 1, exactly as in the JAX package, so a mixture-of-experts
+    layer routes it with the other lanes), and then every cache leaf of
+    that lane is put back as it was.
+
+The JAX package freezes a lane with a select over every leaf of the whole
+cache at every step. The port's caches are updated in place, so the freeze
+is an undo log: before a step, the rows that the frozen lanes' step will
+write are gathered, and after it they are scattered back. A frozen lane
+writes position max_seq − 1, so these rows are, for every stacked leaf in
+one index op, the (lane, (max_seq − 1) mod slots) row of each K/V, scale,
+stamp and latent leaf (a full cache and a ring of window slots alike: in a
+ring that slot may hold a live entry, which the undo restores), and the
+lane's whole conv and SSM state rows (`serve.engine.CACHE_AXES`).
+
+The trip count buckets to the next power of two, capped at
+`prefill_chunk`, as the JAX package's executables do. Per-lane positions
+are one (B,) tensor on the device; each lane's next token is the argmax of
+the logits at its last active step, kept on the device and read to the
+host once a tick. Lane admission is O(1): position stamps −1 invalidate
+the previous occupant's entries, and the recurrent state is zeroed.
+
+The JAX package's batcher advances a priced DDR4 clock (`sim_time_s`) by
+its engine's compiled `decode_program`. The port's engine compiles none
+until the simulator is ported (ROADMAP A9b), so `sim_time_s` stays 0;
+`program_ticks` and `occupancy_ticks` (the per-step lane occupancy that
+program would run at) are counted as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+from .engine import ServeEngine, cache_leaves
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list            # token ids
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # traffic bookkeeping: priced-clock stamps (0 until the clock is ported)
+    arrival_s: float = 0.0
+    first_token_s: Optional[float] = None
+    finish_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Lane:
+    req: Optional[Request] = None
+    pos: int = 0            # next position to write
+    fed: int = 0            # prompt tokens already fed
+    last_tok: int = 0
+
+    @property
+    def free(self):
+        return self.req is None
+
+    @property
+    def prefilling(self):
+        return self.req is not None and self.fed < len(self.req.prompt)
+
+
+class ContinuousBatcher:
+    """Fixed-lane continuous batching over a `ServeEngine`'s model, on the
+    engine's device (the GPU unless `device` or the engine says
+    otherwise)."""
+
+    def __init__(self, cfg: ModelConfig, params, max_seq: int = 256,
+                 lanes: int = 4, kv_bits: Optional[int] = None,
+                 quantized: bool = False, act_bits: Optional[int] = None,
+                 prefill_chunk: int = 8,
+                 engine: Optional[ServeEngine] = None, device=None):
+        if not isinstance(prefill_chunk, int) or prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be a positive int, got "
+                f"{prefill_chunk!r}")
+        if engine is None:
+            engine = ServeEngine(cfg, params, max_seq=max_seq,
+                                 batch_slots=lanes, quantized=quantized,
+                                 act_bits=act_bits, kv_bits=kv_bits,
+                                 device=device)
+        if engine.cfg.input_mode != "tokens":
+            raise ValueError(
+                f"{engine.cfg.name} takes embeddings from a stubbed "
+                f"frontend; the batcher feeds token ids")
+        self.engine = engine
+        self.cfg = engine.cfg
+        self.params = engine.params
+        self.model = engine.model
+        self.max_seq = engine.max_seq
+        self.device = engine.device
+        self.prefill_chunk = prefill_chunk
+        self.lanes = [_Lane() for _ in range(engine.slots)]
+        self.cache = self.model.init_cache(engine.slots, engine.max_seq,
+                                           engine.device)
+        self._lane_index: dict = {}
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.ticks = 0
+        self.decode_steps = 0       # Model.decode_step calls (trip a tick)
+        # resident-program accounting: every inner decode step is one
+        # execution of the engine's program at that step's lane occupancy
+        self.program_ticks = 0
+        self.sim_time_s = 0.0
+        self.occupancy_ticks: dict = {}
+        self.tokens_out = 0
+
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the batcher's device; to a GPU through pinned
+        memory and without waiting for the device."""
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _reset_lane(self, lane: int) -> None:
+        """Invalidate one lane in place: position stamps → −1 (masks the
+        previous occupant's KV entries), recurrent states → 0. K/V payloads
+        and scales can stay: stamps gate them."""
+        for path, leaf, lane_axis, _ in cache_leaves(self.cache):
+            if path[-1] == "positions":
+                leaf.select(lane_axis, lane).fill_(-1)
+            elif path[-1] in ("ssm", "conv"):
+                leaf.select(lane_axis, lane).zero_()
+
+    def _step(self, tok: torch.Tensor, pos: torch.Tensor,
+              frozen: tuple) -> torch.Tensor:
+        """One decode step of every lane → logits (B, V); the lanes in
+        `frozen` keep every cache leaf bit-identical: the rows their step
+        writes are gathered before it and scattered back after it."""
+        log = []
+        if frozen:
+            if frozen not in self._lane_index:
+                self._lane_index[frozen] = self._upload(torch.tensor(frozen))
+            idx = self._lane_index[frozen]
+            for _, leaf, lane_axis, seq_axis in cache_leaves(self.cache):
+                rows = leaf if seq_axis is None else leaf.select(
+                    seq_axis, (self.max_seq - 1) % leaf.shape[seq_axis])
+                log.append((rows, lane_axis, rows.index_select(lane_axis,
+                                                               idx)))
+        logits, _ = self.model.decode_step(self.params, self.cache, tok, pos)
+        for rows, lane_axis, saved in log:
+            rows.index_copy_(lane_axis, idx, saved)
+        return logits
+
+    # -- API ---------------------------------------------------------------
+
+    def submit(self, req: Request):
+        """Queue a request, validating it against the cache horizon up
+        front: an oversized request would be truncated mid-prefill, and an
+        empty prompt has no token to start from."""
+        if not req.prompt:
+            raise ValueError(
+                f"request {req.rid}: empty prompt — there is no token to "
+                f"prefill and no logits to decode from")
+        if req.max_new < 1:
+            raise ValueError(
+                f"request {req.rid}: max_new={req.max_new} must be >= 1")
+        if len(req.prompt) + req.max_new > self.max_seq - 1:
+            raise ValueError(
+                f"request {req.rid}: prompt ({len(req.prompt)} tokens) + "
+                f"max_new ({req.max_new}) exceeds the usable horizon "
+                f"max_seq - 1 = {self.max_seq - 1} (the last slot is the "
+                f"frozen-lane scratch); it would be truncated mid-flight")
+        self.queue.append(req)
+
+    def run(self, max_ticks: int = 10_000):
+        """Tick until every request finishes or the budget expires.
+
+        Returns finished requests PLUS any the budget starved — queued or
+        still in flight — flagged `done=False` (they also stay in
+        `self.queue`/lanes and keep counting in `pending`/`in_flight`)."""
+        while self.queue or any(not lane.free for lane in self.lanes):
+            if self.ticks >= max_ticks:
+                break
+            self.tick()
+        starved = [lane.req for lane in self.lanes if lane.req is not None]
+        starved += self.queue
+        return self.finished + starved
+
+    @property
+    def pending(self) -> int:
+        """Requests still waiting for a lane."""
+        return len(self.queue)
+
+    @property
+    def in_flight(self) -> int:
+        """Requests currently occupying a lane."""
+        return sum(0 if lane.free else 1 for lane in self.lanes)
+
+    # -- one tick -----------------------------------------------------------
+
+    def _admit(self):
+        for i, lane in enumerate(self.lanes):
+            if lane.free and self.queue:
+                req = self.queue.pop(0)
+                lane.req, lane.pos, lane.fed = req, 0, 0
+                lane.last_tok = req.prompt[0]
+                self._reset_lane(i)
+
+    def _plan_steps(self) -> list:
+        """Per-lane inner-step budget for this tick: 0 free / 1 decode /
+        min(prefill_chunk, remaining prompt) prefill."""
+        steps = []
+        for lane in self.lanes:
+            if lane.free:
+                steps.append(0)
+            elif lane.prefilling:
+                steps.append(min(self.prefill_chunk,
+                                 len(lane.req.prompt) - lane.fed))
+            else:
+                steps.append(1)
+        return steps
+
+    def tick_masks(self, steps: Optional[list] = None) -> list:
+        """(trip,) per-inner-step lane-occupancy masks of the NEXT tick
+        (step t runs the lanes with more than t steps budgeted)."""
+        if steps is None:
+            steps = self._plan_steps()
+        sv = np.asarray(steps)
+        return [sv > t for t in range(int(sv.max(initial=0)))]
+
+    def _account_program(self, steps: list):
+        """Count this tick's program executions: inner step t runs at
+        occupancy |lanes with steps > t|. Pricing them advances
+        `sim_time_s` once the engine has a `decode_program` (ROADMAP
+        A9b)."""
+        for m in self.tick_masks(steps):
+            occ = int(m.sum())
+            self.program_ticks += 1
+            self.occupancy_ticks[occ] = self.occupancy_ticks.get(occ, 0) + 1
+
+    @torch.no_grad()
+    def tick(self):
+        self._admit()
+        steps = self._plan_steps()
+        trip_need = max(steps)
+        if trip_need == 0:
+            return                      # nothing in flight, nothing queued
+        # power-of-two trip bucket, as the JAX package's executables
+        trip = min(self.prefill_chunk, 1 << (trip_need - 1).bit_length())
+        self._account_program(steps)
+        # the (token, position, last active step?) of every lane at every
+        # step: lane i feeds its tokens at pos0 + t while t < steps[i], then
+        # token 0 at max_seq − 1, frozen
+        plan = [[], [], []]
+        for t in range(trip):
+            for rows in plan:
+                rows.append([])
+            for lane, s in zip(self.lanes, steps):
+                if t >= s:
+                    tok, pos, last = 0, self.max_seq - 1, 0
+                else:
+                    tok = (lane.req.prompt[lane.fed + t] if lane.prefilling
+                           else lane.last_tok)
+                    pos, last = lane.pos + t, int(t == s - 1)
+                for rows, v in zip(plan, (tok, pos, last)):
+                    rows[-1].append(int(v))
+        toks, poss, lasts = self._upload(torch.tensor(plan))
+        nxt = torch.zeros(len(self.lanes), dtype=torch.long,
+                          device=self.device)
+        for t in range(trip):
+            frozen = tuple(i for i, s in enumerate(steps) if t >= s)
+            logits = self._step(toks[t], poss[t], frozen)
+            nxt = torch.where(lasts[t] > 0, torch.argmax(logits, -1), nxt)
+        self.decode_steps += trip
+        nxt = nxt.tolist()                 # the tick's one read to the host
+        for i, lane in enumerate(self.lanes):
+            if lane.free:
+                continue
+            adv = steps[i]
+            lane.pos += adv
+            if lane.fed < len(lane.req.prompt):
+                lane.fed += adv
+                if lane.fed == len(lane.req.prompt):     # prompt done →
+                    lane.last_tok = nxt[i]               # first sampled tok
+                    lane.req.out.append(lane.last_tok)
+                    self.tokens_out += 1
+                    if lane.req.first_token_s is None:
+                        lane.req.first_token_s = self.sim_time_s
+            else:
+                lane.last_tok = nxt[i]
+                lane.req.out.append(lane.last_tok)
+                self.tokens_out += 1
+            if len(lane.req.out) >= lane.req.max_new:
+                lane.req.done = True
+                lane.req.finish_s = self.sim_time_s
+                self.finished.append(lane.req)
+                lane.req = None
+        self.ticks += 1
