@@ -26,7 +26,23 @@ Phases, each printing one JSON line:
      the engine must hold no copy of the groups' weights (B2's member
      tables above 0.01 GB), and the prefill logits must equal, bitwise,
      those of the same model on the plain versions;
-  4. slice, act_bits=None: the same through B3 (and its fold);
+  4. slice, act_bits=None: the same through B3 (and its fold); each
+     slice's `ServeEngine` tries the residency session on one DIMM, which
+     llama2-7b outgrows (37 of its 225 leaves), and falls back with a
+     warning (`placement_fallback`, `construct_seconds`);
+  4a. the DRAM residency session on phase 3's tree: `ServeEngine(
+     quantized=True, act_bits=4)` on 8 DIMMs (all 225 leaves resident,
+     no fallback) and on 4 DIMMs with the spill tier (resident + spilled
+     = 225, the spill ledger), each with its stats and its DDR4-model
+     price of a decode step and of a tick at occupancy 1 to 4 (the
+     model's seconds and Joules, not the card's); then B2 over a whole
+     decode block: every part of the 8-DIMM program through `run_kernel`
+     on seeded (4, N) activations, the counts zeroed just before and read
+     just after each (one B2 launch, its fold when split, nothing else,
+     no plain version; a table of more than 8 members in device memory),
+     every output bitwise per-leaf B1's, lanes masked to exactly 0, B2
+     bitwise its plain version; each part timed beside the same leaves'
+     B1 launches, its plain version and its planes at the memory rate;
   5. kernels: B4 decode_attention (split over the cache by its plan, a
      fold launch merging the splits) against its plain version at
      llama2-7b's full context (B = 4 lanes, 4096 stamped slots, 32 heads of
@@ -80,7 +96,10 @@ Phases, each printing one JSON line:
      peak and allocated memory, and the wall of one decode step taken in
      turns as `Model.decode_step` alone, as the batcher's step with no
      lane frozen and with every lane frozen (the undo log at its
-     largest), beside the card's name and power limit;
+     largest), beside the card's name and power limit; the bf16 run's
+     engine serves from 8 DIMMs, and its priced DDR4 clock
+     (`sim_time_s`) must equal its program ticks priced one by one, in
+     the order they ran;
   8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
@@ -151,8 +170,9 @@ Phases, each printing one JSON line:
      decode step (one per invocation, each on its own cache), the float
      decode logits against `sdpa`'s held with float32 activations and
      reported with bf16 ones;
- 18. the kernels line, then the card's name and power limit, then the
-     result line.
+ 18. the kernels line (B2 over a whole decode block as its own row,
+     `program_gemv_block`), then the card's name and power limit, then
+     the result line.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
 """
@@ -204,6 +224,7 @@ CONTEXT = 4096             # llama2-7b's published context (KV-cache slots)
 MOE_ARCH = "qwen2-moe-a2.7b"
 DEEPSEEK_LAYERS = 9        # of 27: the depth cut of its slices
 LOGIT_RTOL = 0.05          # of max|logit|, for paths that are not bitwise
+RESIDENT_DIMMS = 8         # a fabric that holds all of llama2-7b at q2
 
 
 START = time.perf_counter()
@@ -626,6 +647,7 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
     eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
                       batch_slots=B, quantized=True, act_bits=act_bits,
                       device="cuda")
+    construct = time.perf_counter() - t0
     eng.generate(prompts[:, :4], max_new=2)      # pack B2 groups, warm up
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
@@ -656,7 +678,8 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
     return eng, toks, {
         "tokens_shape": list(toks.shape), "seconds": dt,
         "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
-        "setup_seconds": setup,
+        "setup_seconds": setup, "construct_seconds": construct,
+        "placement_fallback": eng.placement_fallback,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **seen,
         "resident": resident}
 
@@ -759,6 +782,169 @@ def phase_slice(cfg, qparams, prompts, act_bits, must_run, want=None,
         out |= ssm_float_check(cfg, qparams, prompts)
     if cfg.tie_embeddings:
         out |= tied_head(eng)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the DRAM residency session, its DDR4 price, B2 per decode block
+# ---------------------------------------------------------------------------
+
+def placed_leaves(qparams) -> int:
+    """Matrices `ServeEngine._place_model` registers: every 2-D bit-plane
+    leaf, a layer-stacked one once per layer, expert stacks left out."""
+    from repro_torch.core.bitplane import BitplaneWeights
+    if isinstance(qparams, dict):
+        return sum(placed_leaves(v) if k not in ("w_up", "w_gate", "w_down")
+                   else 0 for k, v in qparams.items())
+    if not isinstance(qparams, BitplaneWeights):
+        return 0
+    return {3: 1, 4: qparams.planes.shape[0]}.get(qparams.planes.ndim, 0)
+
+
+def residency(eng, leaves: int, what: str) -> dict:
+    """The engine's residency stats and DDR4-model prices (seconds and
+    Joules of the model, not of the card); fails unless the whole model
+    is placed, resident or spilled, with a compiled program."""
+    st = eng.residency_stats()
+    if eng.placement_fallback or eng.decode_program is None:
+        raise AssertionError(f"{what}: fell back to program-less serving")
+    if st["placements"] + st.get("spilled", 0) != leaves:
+        raise AssertionError(f"{what}: {st['placements']} resident + "
+                             f"{st.get('spilled', 0)} spilled != {leaves}")
+    step = eng.price_decode_step()
+    ticks = {str(k): {"s": eng.decode_tick_cost_s(k),
+                      "j": eng.decode_tick_energy_j(k)}
+             for k in range(1, B + 1)}
+    if not all(v["s"] > 0 and v["j"] > 0 for v in ticks.values()):
+        raise AssertionError(f"{what}: a tick priced at 0 ({ticks})")
+    keep = ("dimms", "placements", "spilled", "utilization", "used_rows",
+            "total_rows", "staged_bits", "compactions", "migrations",
+            "spills", "spill_restages", "spill_restaged_bits",
+            "placement_fallback", "resident_program")
+    return {"stats": {k: st[k] for k in keep if k in st},
+            "parts": len(eng.decode_program.parts),
+            "priced_step": {k: step[k] for k in (
+                "layers", "batch", "t_total", "e_pud", "e_io", "e_host",
+                "e_spill", "t_compute",
+                "t_aggregate", "t_encode_extra", "t_spill_restage",
+                "spill_restage_bits", "spill_restages", "waves",
+                "waves_shared", "t_sequential_total", "residency_speedup",
+                "scaleout_speedup")},
+            "tick_price": ticks}
+
+
+def phase_residency(cfg, qparams) -> dict:
+    """The residency session at full width on phase 3's quantized tree:
+    `ServeEngine(quantized=True, act_bits=4)` on 8 DIMMs (every leaf
+    resident, no fallback) and on the paper's 4 DIMMs with the spill tier
+    (resident + spilled = every leaf), with their DDR4-model prices at
+    occupancy 1 to B. Then B2 over a whole decode block: each resident
+    part of the 8-DIMM program through `run_kernel` on seeded (B, N)
+    activations, the counts zeroed just before each and read just after
+    (one B2 launch, its fold when split, nothing else, no plain version),
+    every output bitwise per-leaf B1's, masked lanes exactly 0. Each
+    part's launch is timed beside the same leaves' B1 launches, its plain
+    version and the planes at the memory rate. B2 is timed with CUDA
+    events around eager launches (its table's per-call copy is pageable,
+    which a graph cannot capture), the leaves' B1 from a CUDA graph."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bitplane_gemv import kernel, ops, program, ref
+    from repro_torch.serve.engine import ServeEngine
+    leaves = placed_leaves(qparams)
+    out = {"phase": "residency_llama2_7b", "card": nvidia_smi(),
+           "leaves": leaves, "prices_are": "the DDR4 model's, not the card's"}
+    for key, kw in (("dimms_8", {"dimms": RESIDENT_DIMMS}),
+                    ("dimms_4_spill", {"dimms": 4, "spill_tier": True})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW + 1,
+                          batch_slots=B, quantized=True, act_bits=4,
+                          device="cuda", **kw)
+        out[key] = {"construct_seconds": time.perf_counter() - t0,
+                    "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    **residency(eng, leaves, key)}
+        if "spill" in key:
+            ledger = eng.mvdram.pool.spill_ledger()
+            out[key]["spill_ledger"] = list(ledger)
+            if not out[key]["stats"]["spilled"] or \
+                    not out[key]["priced_step"]["t_spill_restage"] > 0:
+                raise AssertionError(f"{key}: nothing spilled or no restage "
+                                     f"term ({out[key]})")
+            del eng
+        else:
+            eng8 = eng
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mask = np.arange(B) % 2 == 0
+    parts = []
+    for k, part in enumerate(eng8.decode_program.parts):
+        prog = part.prog
+        table = prog.kernel_table()
+        specs = [h.a_spec for h in prog.handles]
+        xs = [torch.randn((B, h.weights.n), generator=gen, device="cuda")
+              for h in prog.handles]
+        _, splits = table.split(B, sms)
+        reset_counts()
+        got = prog.run_kernel(xs)
+        torch.cuda.synchronize()
+        seen = counts()
+        want = {name: 0 for name in seen["launches"]}
+        want["program_gemv"] = 1
+        want["program_gemv_fold"] = int(splits > 1)
+        if seen["launches"] != want or any(seen["plain"].values()):
+            raise AssertionError(f"part {k}: launches {seen}, not one B2 "
+                                 f"launch ({splits} splits)")
+        for h, x, o in zip(prog.handles, xs, got):
+            leaf = ops.bitplane_gemv_bitserial(x, h.weights, h.a_spec)
+            if not torch.equal(o, leaf):
+                raise AssertionError(f"part {k} {h.name}: whole-block B2 "
+                                     f"!= per-leaf B1")
+        masked = prog.run_kernel(xs, lane_mask=mask)
+        keep = torch.from_numpy(mask).cuda()[:, None]
+        for o, mo in zip(got, masked):
+            if not (torch.equal(mo[keep[:, 0]], o[keep[:, 0]])
+                    and bool((mo[~keep[:, 0]] == 0).all())):
+                raise AssertionError(f"part {k}: lane mask broke a row")
+        codes, _ = program.block_codes(table, xs, specs)
+        k_out = program.group_gemv(table, codes)
+        p_out = ref.group_gemv_ref(codes, table.planes, table.scales,
+                                   table.members, table.cols)
+        err = float((k_out - p_out).abs().max())
+        if not torch.equal(k_out, p_out):
+            raise AssertionError(f"part {k}: B2 != its plain version "
+                                 f"(max|Δ| {err})")
+        del k_out, p_out
+        ms = eager_ms(lambda: program.group_gemv(table, codes), reps=10)
+        leaf_in = [_leaf_inputs(x, h.weights, h.a_spec.bits)
+                   for h, x in zip(prog.handles, xs)]
+        # the same leaves through B1, one launch (and fold) each, from a
+        # CUDA graph: device time without the host's launch gaps
+        b1_ms = graph_ms([lambda: [
+            kernel.gemv_bs(c, h.weights.planes, st, **kw)
+            for (c, _a, st, kw, _f), h in zip(leaf_in, prog.handles)]], 5)
+        plain = eager_ms(lambda: ref.group_gemv_ref(
+            codes, table.planes, table.scales, table.members, table.cols),
+            reps=1)
+        del leaf_in
+        ops_count = 2.0 * B * sum(h.weights.n * h.weights.m
+                                  for h in prog.handles)
+        t_bound, by = bound(
+            nbytes(codes, table.planes,
+                   [h.weights.scale for h in prog.handles]),
+            B * table.cols * 4, ops_count, "int8")
+        parts.append({"part": k, "members": len(prog.handles),
+                      "cols": table.cols, "strips": table.strips,
+                      "splits": splits, "max_abs_err": err, "ms": ms,
+                      "per_leaf_b1_ms": b1_ms, "plain_ms": plain,
+                      "bound_ms": t_bound, "bound_by": by,
+                      "plane_bound_ms": plane_bound_ms(table.planes),
+                      "planes_gb": nbytes(table.planes) / 1e9})
+    out["b2_whole_block"] = parts
+    out["b2_whole_block_launches"] = len(parts)
     emit(out)
     return out
 
@@ -1290,7 +1476,7 @@ def step_ms(b) -> dict:
 
 
 def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
-                  attn_kernel=False, must_run=()) -> dict:
+                  attn_kernel=False, must_run=(), dimms=1) -> dict:
     """`ContinuousBatcher` at act_bits=4 on `ServeEngine(quantized=True)`
     (with `attn_kernel`: an int8 cache, the engine's model swapped for one
     with `attn_impl="kernel"`, attention through B4). The counts are zeroed
@@ -1300,7 +1486,11 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     a recycled lane each equal to serving it alone in a fresh batcher;
     one tick with every frozen lane's rows held bitwise at each step (and
     each B4 call against its plain version), and a whole tick of a free
-    lane that holds its last request's state."""
+    lane that holds its last request's state. With `dimms` > 1 the engine
+    serves from a fabric of that many DIMMs, and the batcher's priced DDR4
+    clock must equal its program ticks priced one by one in the order they
+    ran."""
+    import collections
     import torch
     import warnings
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -1309,7 +1499,10 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     kv_bits = 8 if attn_kernel else None
     eng = ServeEngine(cfg, qparams, max_seq=max_seq, batch_slots=B,
                       quantized=True, act_bits=4, kv_bits=kv_bits,
-                      device="cuda")
+                      device="cuda", dimms=dimms)
+    if dimms > 1 and eng.decode_program is None:
+        raise AssertionError(f"{name}: no resident program on {dimms} "
+                             f"DIMMs")
     if attn_kernel:
         eng.model = Model(cfg, act_bits=4, impl=eng.model.impl,
                           kv_bits=kv_bits, attn_impl="kernel")
@@ -1320,6 +1513,13 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     b = batcher(eng, reqs)
+    occs = []                    # each program tick's occupancy, in order
+    real_account = b._account_program
+
+    def account(steps):
+        occs.extend(int(m.sum()) for m in b.tick_masks(steps))
+        real_account(steps)
+    b._account_program = account
     reset_counts()
     # every wait of the host on the device in the run, as the sync debug
     # mode reports it (the batcher reads the next tokens once a tick)
@@ -1334,6 +1534,7 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = counts()
+    del b._account_program
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     if sorted(r.rid for r in done) != list(range(len(reqs))) or not all(
             r.done and len(r.out) == reqs[r.rid][1] for r in done):
@@ -1377,6 +1578,28 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
         "sim_time_s": b.sim_time_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    if collections.Counter(occs) != b.occupancy_ticks:
+        raise AssertionError(f"{name}: recorded occupancies {occs} do not "
+                             f"add up to {b.occupancy_ticks}")
+    if eng.decode_program is not None:
+        # the priced clock (DDR4 model seconds, not the card's): the ticks
+        # priced one by one in the order they ran, and grouped by
+        # occupancy (another order of the same float additions)
+        clock = 0.0
+        for occ in occs:
+            clock += eng.decode_tick_cost_s(occ)
+        grouped = sum(eng.decode_tick_cost_s(k) * v
+                      for k, v in b.occupancy_ticks.items())
+        if b.sim_time_s != clock or not clock > 0:
+            raise AssertionError(f"{name}: sim_time_s {b.sim_time_s} != "
+                                 f"its priced ticks {clock}")
+        stats |= {
+            "dimms": dimms, "priced_clock": "DDR4 model, not the card",
+            "sim_time_s_by_occupancy": grouped,
+            "tick_cost_s": {str(k): eng.decode_tick_cost_s(k)
+                            for k in sorted(b.occupancy_ticks)},
+            "first_token_s": {r.rid: r.first_token_s for r in done},
+            "finish_s": {r.rid: r.finish_s for r in done}}
     out = {r.rid: r.out for r in done}
     # interleaved equals solo: the shortest and the longest prompt, and
     # the first request admitted into a recycled lane (rid B)
@@ -1972,6 +2195,7 @@ def main() -> int:
                      ("gemv_bs", "gemv_bs_fold", "program_gemv",
                       "program_gemv_fold"))
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
+    res = phase_residency(cfg, qparams)
     rows["decode_attention"] = phase_decode_attention()
     rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
     sa = phase_attn_kernel_slice(cfg, qparams, prompts,
@@ -1980,7 +2204,7 @@ def main() -> int:
     llama_b1 = ("gemv_bs", "gemv_bs_fold", "program_gemv",
                 "program_gemv_fold")
     phase_batcher(cfg, qparams, "batcher_llama2_7b_act_bits_4",
-                  must_run=llama_b1)
+                  must_run=llama_b1, dimms=RESIDENT_DIMMS)
     phase_batcher(cfg, qparams,
                   "batcher_llama2_7b_act_bits_4_kv8_attn_kernel",
                   max_seq=CONTEXT, attn_kernel=True, must_run=llama_b1)
@@ -2077,6 +2301,25 @@ def main() -> int:
         if kname + "_fold" in launches:
             row["fold_launches"] = launches[kname + "_fold"]
         kernels.append(row)
+    # B2 over a whole decode block (phase 4a): the 8-DIMM program's parts,
+    # one launch each, summed as one decode step runs them
+    blk = res["b2_whole_block"]
+    kernels.append({
+        "name": "program_gemv_block", "route": "cuda",
+        "source": SOURCES["program_gemv"],
+        "replaces": REPLACES["program_gemv"],
+        "launches": res["b2_whole_block_launches"],
+        "max_abs_err": max(p["max_abs_err"] for p in blk),
+        **{key: sum(p[key] for p in blk) for key in (
+            "ms", "plain_ms", "bound_ms", "plane_bound_ms",
+            "per_leaf_b1_ms")},
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            p["bound_ms"] for p in blk if p["bound_by"] == by)),
+        "library_ms": None,
+        "shapes": {f"part {p['part']}: {p['members']} leaves": 1
+                   for p in blk}})
+    kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
+    kernels[-1]["max_abs_diff"] = kernels[-1]["max_abs_err"]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

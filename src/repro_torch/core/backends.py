@@ -4,6 +4,9 @@ live (port of the JAX package's `core/backends.py`).
   `Backend.linear(engine, x, w, act_bits)`    one serving linear
   `Backend.linear_group(engine, x, ws, b)`    k linears sharing one input
                                               (q/k/v, up/gate)
+  `Backend.run_program(engine, prog, xs)`     a compiled GemvProgram decode
+                                              block — kernel: one B2
+                                              launch; default: per-leaf
   `Backend.kernel_impl`                       the impl string of the
                                               bit-plane entry points
 
@@ -50,6 +53,22 @@ class Backend(abc.ABC):
         `linear` calls — backends that can fuse them override."""
         return tuple(self.linear(engine, x, w, act_bits) for w in ws)
 
+    def run_program(self, engine, program, activations, *,
+                    lane_mask=None, fidelity: str = "code"):
+        """Execute a compiled `GemvProgram` decode block; returns per-layer
+        outputs. Default: per-leaf linears — identical results, no fusion;
+        masked lanes return zero rows."""
+        outs = []
+        for h, x in zip(program.handles, activations):
+            program._check_layer(h)
+            out = self.linear(engine, x, h.weights, h.a_spec.bits)
+            if lane_mask is not None:
+                keep = torch.as_tensor(lane_mask, dtype=torch.bool,
+                                       device=out.device)
+                out = torch.where(keep[:, None], out, 0.0)
+            outs.append(out)
+        return outs
+
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"
 
@@ -82,6 +101,12 @@ class KernelBackend(Backend):
         table = (engine.packed_group(ws, act_bits)
                  if engine is not None else None)
         return bp_program.fused_group_linears(x, ws, act_bits, table=table)
+
+    def run_program(self, engine, program, activations, *,
+                    lane_mask=None, fidelity: str = "code"):
+        """The program-aware path: one B2 launch per decode block."""
+        return program.run_kernel(activations, fidelity=fidelity,
+                                  lane_mask=lane_mask)
 
 
 # ---------------------------------------------------------------------------

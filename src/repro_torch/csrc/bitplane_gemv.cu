@@ -37,9 +37,10 @@
 //    place, unpadded; a slot of the JAX package's slot-major envelope is a
 //    member too, with tile, plane and word strides and the envelope's BN
 //    as its bn. The table of at most kMaxMembers members is a by-value
-//    kernel parameter; a longer one (the slot-major entry's 48–86 slots)
-//    lies in device memory. Every member runs the same block body
-//    (`gemv_block`), so B2 gives B1's bits for each of its members.
+//    kernel parameter; a longer one (the slot-major entry's 48–86 slots,
+//    or a whole decode block's leaves) lies in device memory. Every
+//    member runs the same block body (`gemv_block`), so B2 gives B1's
+//    bits for each of its members.
 //  * Work items. A lane owns 4 neighbouring output columns and loads a
 //    plane word of them as one 16-byte int4 (a warp reads 512 contiguous
 //    bytes per plane word); a warp covers a strip of 128 columns. A work
@@ -95,6 +96,7 @@
 // Launch functions return cudaGetLastError() after their launches; the
 // Python wrapper raises on anything but 0.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -717,4 +719,25 @@ extern "C" int gemv_group_launch(const void* tab, const void* gtab, int n,
   fold_group_kernel<<<strips, kThreads, 0, st>>>(
       t, g, n, static_cast<const int*>(ws), ws_cols, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A member table in device memory (more members than a by-value Table
+// holds: a whole decode block) keeps its static fields from one upload;
+// each call rewrites only the first five fields of every member (a,
+// planes, scales, out, a_row: the codes and output of that call) with one
+// strided host-to-device copy on the launch's stream, so the previous
+// launch has read the table before it changes. `rows` is n rows of
+// kPerCall bytes, in pageable memory: the copy stages it before
+// returning.
+constexpr size_t kPerCall = 5 * sizeof(long long);
+static_assert(offsetof(Member, a_tile) == kPerCall,
+              "the per-call fields lead every Member");
+
+extern "C" int gemv_table_pointers(void* gtab, const void* rows, int n,
+                                   void* stream) {
+  if (gtab == nullptr || rows == nullptr || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpy2DAsync(
+      gtab, sizeof(Member), rows, kPerCall, kPerCall, n,
+      cudaMemcpyHostToDevice, static_cast<cudaStream_t>(stream)));
 }

@@ -7,11 +7,16 @@ The main path (`fused_group_linears`, `run_program`) describes each layer
 of the group as a member of a `GroupTable`: its own leaf planes, read in
 place, its own tile scales, blocking (bn from `_pick_blocks`), q, p and
 zero points, and its own column range of one (B, ΣM) output. The table is
-static per group and cached by `MVDRAMEngine.packed_group`; a call
-quantizes the input once, pads the codes to the widest member and launches
-once. Each member's result is integer-identical to the per-leaf path
-(`ops.bitplane_gemv_bitserial`), and its f32 epilogue runs in the same tile
-order, so the outputs are bitwise equal.
+static per group and cached by `MVDRAMEngine.packed_group` (a q/k/v or
+up/gate group) or by `GemvProgram.kernel_table` (a whole decode block of a
+compiled program, `GemvProgram.run_kernel`); a call quantizes the input
+once, pads the codes to the widest member and launches once. A table of at
+most `kernel.MAX_MEMBERS` members is a by-value kernel parameter; a longer
+one lies in device memory, uploaded once, and each launch rewrites only
+its members' codes and output pointers there. Each member's result is
+integer-identical to the per-leaf path (`ops.bitplane_gemv_bitserial`),
+and its f32 epilogue runs in the same tile order, so the outputs are
+bitwise equal.
 
 The JAX module's slot-major API stays as its port: `build_plan`,
 `pack_weights`, `pack_codes`, `pack_params`, `gather_outputs` and the
@@ -289,18 +294,15 @@ class GroupTable:
         nothing with one split."""
         return (0,) if splits == 1 else (self.tiles_max, b, self.cols)
 
-    def ctable(self) -> "bp_kernel.Table":
-        """The by-value kernel table with every static field set, built on
-        first use; a launch fills in its codes and output pointers (the
-        kernel parameter is copied at the launch, so the next launch may
-        overwrite them)."""
-        tab = self._ctable.get("table")
-        if tab is None:
-            tab = bp_kernel.Table()
-            tab.n = len(self.members)
-            for i, (M, pl, sc) in enumerate(zip(self.members, self.planes,
-                                                self.scales)):
-                e = tab.m[i]
+    def members_c(self) -> "ctypes.Array":
+        """Every member as the kernel's `Member`, its static fields set
+        (its per-call fields, `a`, `a_row` and `out`, are 0), built on
+        first use."""
+        arr = self._ctable.get("members")
+        if arr is None:
+            arr = (bp_kernel.Member * len(self.members))()
+            for e, M, pl, sc in zip(arr, self.members, self.planes,
+                                    self.scales):
                 e.planes, e.scales = pl.data_ptr(), sc.data_ptr()
                 e.a_tile = M.bn
                 e.plane_stride, e.word_stride = pl.stride(0), pl.stride(1)
@@ -310,8 +312,51 @@ class GroupTable:
                 e.tiles, e.bn, e.q, e.mask = M.tiles, M.bn, M.q, (1 << M.p) - 1
                 e.z_a, e.zero, e.strip0 = M.z_a, M.z_w, M.strip0
                 e.vec = int(M.m % 4 == 0 and pl.data_ptr() % 16 == 0)
+            self._ctable["members"] = arr
+        return arr
+
+    def ctable(self) -> "bp_kernel.Table":
+        """The by-value kernel table (at most `kernel.MAX_MEMBERS`
+        members) with every static field set, built on first use; a launch
+        fills in its codes and output pointers (the kernel parameter is
+        copied at the launch, so the next launch may overwrite them)."""
+        tab = self._ctable.get("table")
+        if tab is None:
+            if len(self.members) > bp_kernel.MAX_MEMBERS:
+                raise ValueError(
+                    f"program_gemv: {len(self.members)} members, a by-value "
+                    f"table holds {bp_kernel.MAX_MEMBERS}")
+            tab = bp_kernel.Table()
+            tab.n = len(self.members)
+            for i, e in enumerate(self.members_c()):
+                tab.m[i] = e
             self._ctable["table"] = tab
         return tab
+
+    def device_table(self, device) -> torch.Tensor:
+        """The members in device memory, for a launch of more members than
+        a by-value table holds: uploaded once, static fields and all; each
+        launch then rewrites only the per-call fields (`call_fields`)."""
+        key = ("device", str(device))
+        gtab = self._ctable.get(key)
+        if gtab is None:
+            gtab = torch.frombuffer(bytearray(self.members_c()),
+                                    dtype=torch.uint8).to(device)
+            self._ctable[key] = gtab
+        return gtab
+
+    def call_fields(self, codes: Sequence[torch.Tensor],
+                    out: torch.Tensor) -> np.ndarray:
+        """(n, 5) int64: the fields of each member that a launch sets —
+        `a`, `planes`, `scales`, `out`, `a_row`, the first five 8-byte
+        fields of the kernel's `Member` in its order — for codes[l] and the
+        group's (B, ΣM) f32 output."""
+        rows = np.empty((len(self.members), 5), np.int64)
+        for row, c, pl, sc, M in zip(rows, codes, self.planes, self.scales,
+                                     self.members):
+            row[:] = (c.data_ptr(), pl.data_ptr(), sc.data_ptr(),
+                      out.data_ptr() + 4 * M.col, c.stride(0))
+        return rows
 
 
 def member_table(plan: ProgramKernelPlan, leaves: Sequence) -> GroupTable:
@@ -359,9 +404,6 @@ def group_gemv(table: GroupTable, codes: Sequence[torch.Tensor], *,
                                   table.members, table.cols,
                                   fidelity=fidelity)
     dev = codes[0].device
-    if len(table.members) > bp_kernel.MAX_MEMBERS:
-        raise ValueError(f"program_gemv: {len(table.members)} members, the "
-                         f"kernel's table holds {bp_kernel.MAX_MEMBERS}")
     for c, pl, sc, M in zip(codes, table.planes, table.scales,
                             table.members):
         if c.device != dev or pl.device != dev or sc.device != dev:
@@ -379,16 +421,28 @@ def group_gemv(table: GroupTable, codes: Sequence[torch.Tensor], *,
     out = torch.empty((b, table.cols), dtype=torch.float32, device=dev)
     ws = torch.empty(table.workspace_shape(b, splits), dtype=torch.int32,
                      device=dev)
-    tab = table.ctable()
-    for i, (c, M) in enumerate(zip(codes, table.members)):
-        e = tab.m[i]
-        e.a, e.a_row = c.data_ptr(), c.stride(0)
-        e.out = out.data_ptr() + 4 * M.col
     lib = build.library("bitplane_gemv")
+    n = len(table.members)
+    if n <= bp_kernel.MAX_MEMBERS:
+        tab = table.ctable()
+        for i, (c, M) in enumerate(zip(codes, table.members)):
+            e = tab.m[i]
+            e.a, e.a_row = c.data_ptr(), c.stride(0)
+            e.out = out.data_ptr() + 4 * M.col
+        by_value, gtab = ctypes.addressof(tab), None
+    else:
+        # a whole decode block: the table in device memory, this call's
+        # fields written into it on the launch's stream
+        gtab = table.device_table(dev).data_ptr()
+        rows = table.call_fields(codes, out)
+        build.check(lib.gemv_table_pointers(
+            gtab, rows.ctypes.data, n, bp_kernel._stream()),
+            "program_gemv (member table)")
+        by_value = None
     LAUNCHES["program_gemv"] += 1
     LAUNCHES["program_gemv_fold"] += int(splits > 1)
     build.check(lib.gemv_group_launch(
-        ctypes.addressof(tab), None, tab.n, table.strips,
+        by_value, gtab, n, table.strips,
         ws.data_ptr() if splits > 1 else None, table.cols, b, table.q_max,
         tpb, splits, bp_kernel._stream()), "program_gemv")
     return out
@@ -532,6 +586,22 @@ def _quantize_batched(xs: Sequence[torch.Tensor],
     return tuple(codes), tuple(scales), layout
 
 
+def block_codes(table: GroupTable, xs: Sequence[torch.Tensor],
+                specs: Sequence[QuantSpec]) -> tuple:
+    """What one launch over `table` reads: quantize each member's (B, n_l)
+    activations (`_quantize_batched`), pad each bucket's codes once with its
+    z_a to its widest member. Returns (codes per member, views into the
+    padded buckets; activation scales per member)."""
+    codes, scales, layout = _quantize_batched(xs, specs)
+    width, z_a = [0] * len(codes), [0] * len(codes)
+    for M, (bi, _s, _b) in zip(table.members, layout):
+        width[bi], z_a[bi] = max(width[bi], M.n_pad), M.z_a
+    padded = [torch.nn.functional.pad(c, (0, w - c.shape[1]), value=z)
+              for c, w, z in zip(codes, width, z_a)]
+    return ([padded[bi][s:s + b] for bi, s, b in layout],
+            [scales[bi][s:s + b] for bi, s, b in layout])
+
+
 def run_program(plan: ProgramKernelPlan, leaves: Sequence,
                 xs: Sequence[torch.Tensor], specs: Sequence[QuantSpec], *,
                 fidelity: str = "code", table: Optional[GroupTable] = None
@@ -544,17 +614,10 @@ def run_program(plan: ProgramKernelPlan, leaves: Sequence,
     callers that run many steps build it once."""
     if table is None:
         table = member_table(plan, leaves)
-    codes, scales, layout = _quantize_batched(xs, specs)
-    # each bucket's codes padded once with its z_a, to its widest member
-    width, z_a = [0] * len(codes), [0] * len(codes)
-    for M, (bi, _s, _b) in zip(table.members, layout):
-        width[bi], z_a[bi] = max(width[bi], M.n_pad), M.z_a
-    padded = [torch.nn.functional.pad(c, (0, w - c.shape[1]), value=z)
-              for c, w, z in zip(codes, width, z_a)]
-    out = group_gemv(table, [padded[bi][s:s + b] for bi, s, b in layout],
-                     fidelity=fidelity)
-    return tuple(out[:, M.col:M.col + M.m] * scales[bi][s:s + b]
-                 for M, (bi, s, b) in zip(table.members, layout))
+    codes, scales = block_codes(table, xs, specs)
+    out = group_gemv(table, codes, fidelity=fidelity)
+    return tuple(out[:, M.col:M.col + M.m] * sc
+                 for M, sc in zip(table.members, scales))
 
 
 def group_plan(ws: Sequence, act_bits: int) -> ProgramKernelPlan:

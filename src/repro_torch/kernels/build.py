@@ -46,6 +46,8 @@ SIGNATURES = {
         # table (host), table (device) or null, n, strips, ws, ws_cols, B,
         # q_max, tiles_per_block, splits, stream
         "gemv_group_launch": [_P, _P, _I, _I, _P] + [_I] * 5 + [_P],
+        # device table, its per-call fields (n rows of 5 int64), n, stream
+        "gemv_table_pointers": [_P, _P, _I, _P],
     },
     "experts_mma": {
         # a (bf16), planes, scales, out, ws, counts or null, E, R, N,

@@ -13,26 +13,46 @@ default (kernel) backend, each decode step runs:
 Decode is the JAX package's per-token loop (its `scan=False` oracle); the
 bucketed masked scan has no counterpart here. The KV cache is updated in
 place. Requests of different lengths share the lanes through
-`serve.scheduler.ContinuousBatcher`. The DRAM residency session
-(`_place_model`), the compiled `decode_program` and the DDR4 pricing of
-decode ticks (the batcher's priced clock) wait for the simulator's port
-(ROADMAP A9).
+`serve.scheduler.ContinuousBatcher`.
+
+Quantized serving is a RESIDENCY SESSION, as in the JAX package: at
+startup every 2-D quantized weight leaf of the model is registered into
+ONE `DramPool` (or, with `dimms > 1` or `spill_tier`, a `FabricPool` of
+several DIMMs with a CXL spill tier), and the block's GeMV sequence is
+compiled into a capacity `GemvProgram` (a `FabricProgram` of per-DIMM
+parts on a fabric) whose fused wave schedule prices each decode tick on
+the DDR4 model (`price_decode_step`, `decode_tick_cost_s`,
+`decode_tick_energy_j`: the model's seconds and Joules, not the card's). A
+model that does not fit falls back to program-less serving with a
+`RuntimeWarning`. On the card, `decode_program.run_kernel` (one per DIMM
+part) runs a whole decode block as one B2 launch.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+import warnings
+from typing import Optional, Union
 
 import torch
 
 from ..core import backends
-from ..core.engine import EngineLinear, MVDRAMEngine
+from ..core.bitplane import BitplaneWeights
+from ..core.engine import (EngineLinear, FabricProgram, GemvProgram,
+                           MVDRAMEngine)
+from ..core.pud.fabric import FabricPool
+from ..core.pud.residency import CapacityError
+from ..core.quant import QuantSpec
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import Model
 from .quantize import quantize_params
 
+# Independent linears of one block — they read the SAME input, so their
+# tiles may share waves in the compiled decode program (q/k/v on the
+# attention input, up/gate on the FFN input).
+_CONCURRENT_LEAVES = (("wq", "wk", "wv"), ("up", "gate"),
+                      ("shared_up", "shared_gate"))
 
 #: the axes of each decode-cache leaf of one layer (the JAX package's
 #: `_CACHE_AXES`); a leaf of the stacked layout ("first", "stages",
@@ -84,15 +104,21 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 512,
                  batch_slots: int = 4, quantized: bool = False,
                  act_bits: Optional[int] = None, impl=None,
-                 kv_bits: Optional[int] = None, device=None):
+                 kv_bits: Optional[int] = None, device=None,
+                 dimms: int = 1, spill_tier: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_seq = max_seq
         self.slots = batch_slots
         self.mvdram: Optional[MVDRAMEngine] = None
-        # the resident DRAM program of the JAX package; the port compiles
-        # none until the simulator is ported (ROADMAP A9)
-        self.decode_program = None
+        # GemvProgram on a single pool, FabricProgram when dimms > 1 or
+        # spill_tier — both price through the same surface
+        self.decode_program: Optional[Union[GemvProgram,
+                                            FabricProgram]] = None
+        # True when the model did not fit the pool and serving fell back
+        # to the program-less path
+        self.placement_fallback = False
+        self._tick_price_cache: dict = {}
         params = params_to(params, self.device)
         if cfg.tie_embeddings:
             # the tied head reads the whole table every step in the model's
@@ -103,12 +129,160 @@ class ServeEngine:
         model_impl = impl
         if quantized:
             params = quantize_params(params, cfg.weight_bits)
-            self.mvdram = MVDRAMEngine()
+            # residency session: the whole model co-resides in one pool.
+            # on_full="raise", so a model that outgrows the pool fails
+            # placement VISIBLY (and falls back to program-less serving)
+            # instead of LRU-evicting the layers just placed; with
+            # spill_tier, placements that fit no module park in the CXL
+            # capacity tier instead
+            if dimms > 1 or spill_tier:
+                self.mvdram = MVDRAMEngine(
+                    pool=FabricPool(dimms=max(1, dimms)),
+                    on_full="spill" if spill_tier else "raise")
+            else:
+                self.mvdram = MVDRAMEngine(on_full="raise")
+            self.decode_program = self._place_model(params, act_bits)
             model_impl = EngineLinear(self.mvdram,
                                       backend=backends.get_backend(impl))
         self.params = params
         self.model = Model(cfg, act_bits=act_bits if quantized else None,
                            impl=model_impl, kv_bits=kv_bits)
+
+    def _place_model(self, qparams, act_bits: Optional[int]
+                     ) -> Optional[Union[GemvProgram, FabricProgram]]:
+        """Register every quantized weight leaf into the engine's pool
+        (the whole model becomes co-resident, heterogeneous shapes
+        included) and compile the decode step's GeMV sequence into one
+        fused program. Layer-stacked leaves unstack into one resident
+        matrix per layer (views: no weight is copied); per-expert MoE
+        stacks (w_up/w_gate/w_down) serve through the stacked expert path
+        and stay un-pooled. Leaf names, decode order and groups are the
+        JAX package's."""
+        a_spec = QuantSpec(bits=act_bits) if act_bits else None
+        leaves: list = []   # (stage_path, stack_idx, leaf_name, weights)
+
+        def walk(tree, path=()):
+            if isinstance(tree, dict):
+                for k in tree:
+                    walk(tree[k], path + (str(k),))
+                return
+            if not isinstance(tree, BitplaneWeights):
+                return
+            leaf = path[-1]
+            if leaf in ("w_up", "w_gate", "w_down"):   # per-expert stacks
+                return
+            stage = "/".join(path[:-1])
+            if tree.planes.ndim == 3:
+                leaves.append((stage, -1, leaf, tree))
+            elif tree.planes.ndim == 4:                # layer-stacked stage
+                for i in range(tree.planes.shape[0]):
+                    leaves.append((stage, i, leaf, tree[i]))
+
+        walk(qparams)
+        if not leaves:
+            return None
+        # decode order: layer-major (stage, stack index), leaves within
+        leaves.sort(key=lambda e: (e[0], e[1]))
+        names = []
+
+        def place(pending):
+            for stage, idx, leaf, bw in pending:
+                name = f"{stage}/{leaf}" + (f"#{idx}" if idx >= 0 else "")
+                self.mvdram.register_packed(name, bw, a_spec=a_spec)
+                names.append(name)
+
+        try:
+            try:
+                place(leaves)
+            except CapacityError:
+                # first-fit gaps may add up to the rows we need without a
+                # contiguous run anywhere: defragment the pool and retry
+                # the remaining placements once
+                self.mvdram.pool.compact()
+                place(leaves[len(names):])
+        except CapacityError as e:
+            # the model does not fit the pool: roll the partial residency
+            # back and serve without a resident decode program
+            self.placement_fallback = True
+            for name in names:
+                if self.mvdram.pool.is_resident(name):
+                    self.mvdram.evict(name)
+            warnings.warn(
+                f"model does not fit the DramPool even after compaction "
+                f"({len(names)}/{len(leaves)} linears placed before "
+                f"capacity ran out); serving without a resident decode "
+                f"program. {e}", RuntimeWarning, stacklevel=2)
+            return None
+        # concurrency groups: leaves of one (stage, layer) that read the
+        # same input (q/k/v, up/gate) may share waves; the rest serializes
+        groups, used = [], set()
+        index = {(e[0], e[1], e[2]): i for i, e in enumerate(leaves)}
+        for i, (stage, idx, leaf, _bw) in enumerate(leaves):
+            if i in used:
+                continue
+            group = [i]
+            for peers in _CONCURRENT_LEAVES:
+                if leaf in peers:
+                    group = [index[(stage, idx, p)] for p in peers
+                             if (stage, idx, p) in index]
+            used.update(group)
+            groups.append(group)
+        # CAPACITY program: every tick launches all `slots` lanes and the
+        # scheduler's occupancy rides in as a lane mask
+        return self.mvdram.compile(names, groups=groups, b_max=self.slots)
+
+    def price_decode_step(self, bit_density: float = 0.5,
+                          batch: Optional[int] = None) -> Optional[dict]:
+        """DDR4-model price of one resident decode step through the
+        compiled program (zero repeated weight staging), next to the
+        per-layer re-staging baseline. None without a program."""
+        if self.decode_program is None:
+            return None
+        cost = self.decode_program.price(bit_density=bit_density,
+                                         batch=batch or self.slots)
+        return cost.asdict()
+
+    def decode_tick_cost_s(self, occupancy: int,
+                           bit_density: float = 0.5) -> Optional[float]:
+        """DDR4-model seconds of ONE decode tick of the resident program at
+        the given lane occupancy — what the batcher's priced clock
+        advances by per tick. Cached per occupancy (the price is a pure
+        function of the compiled schedule and the lane count). None
+        without a program."""
+        if self.decode_program is None:
+            return None
+        if not isinstance(occupancy, int) or not \
+                (1 <= occupancy <= self.slots):
+            raise ValueError(
+                f"occupancy must be an int in [1, {self.slots}] "
+                f"(the compiled lane capacity), got {occupancy!r}")
+        key = (occupancy, bit_density)
+        if key not in self._tick_price_cache:
+            cost = self.decode_program.price(bit_density=bit_density,
+                                             batch=occupancy)
+            self._tick_price_cache[key] = (cost.t_total, cost.e_total)
+        return self._tick_price_cache[key][0]
+
+    def decode_tick_energy_j(self, occupancy: int,
+                             bit_density: float = 0.5) -> Optional[float]:
+        """DDR4-model Joules of ONE decode tick at the given lane occupancy
+        — the per-command `EnergyModel` twin of `decode_tick_cost_s`,
+        sharing its cache. None without a program."""
+        if self.decode_tick_cost_s(occupancy, bit_density) is None:
+            return None
+        return self._tick_price_cache[(occupancy, bit_density)][1]
+
+    def residency_stats(self) -> Optional[dict]:
+        """The engine's pool counters plus the serving-level flags:
+        `placement_fallback` (the model did not fit the pool and serves
+        program-less) and `resident_program` (a compiled decode program
+        is live). None for unquantized engines."""
+        if self.mvdram is None:
+            return None
+        stats = self.mvdram.residency_stats()
+        stats["placement_fallback"] = self.placement_fallback
+        stats["resident_program"] = self.decode_program is not None
+        return stats
 
     @torch.no_grad()
     def generate(self, prompts, max_new: int = 32, temperature: float = 0.0,

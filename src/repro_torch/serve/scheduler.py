@@ -31,11 +31,14 @@ the logits at its last active step, kept on the device and read to the
 host once a tick. Lane admission is O(1): position stamps −1 invalidate
 the previous occupant's entries, and the recurrent state is zeroed.
 
-The JAX package's batcher advances a priced DDR4 clock (`sim_time_s`) by
-its engine's compiled `decode_program`. The port's engine compiles none
-until the simulator is ported (ROADMAP A9b), so `sim_time_s` stays 0;
-`program_ticks` and `occupancy_ticks` (the per-step lane occupancy that
-program would run at) are counted as in the JAX package.
+The batcher rides on a `ServeEngine` residency session: a quantized
+engine compiles the model's GeMV sequence into a CAPACITY program (`b_max`
+= lanes), and every inner decode step is accounted against it at the
+step's lane occupancy (`decode_tick_cost_s`): `sim_time_s` is the priced
+DDR4 clock (the model's seconds, not the card's) that stamps each
+request's `first_token_s` and `finish_s`, as in the JAX package. An
+engine without a program (unquantized, or a model that did not fit its
+pool) leaves it at 0.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ class Request:
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
-    # traffic bookkeeping: priced-clock stamps (0 until the clock is ported)
+    # traffic bookkeeping: priced DDR4-clock stamps
     arrival_s: float = 0.0
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
@@ -238,14 +241,18 @@ class ContinuousBatcher:
         return [sv > t for t in range(int(sv.max(initial=0)))]
 
     def _account_program(self, steps: list):
-        """Count this tick's program executions: inner step t runs at
-        occupancy |lanes with steps > t|. Pricing them advances
-        `sim_time_s` once the engine has a `decode_program` (ROADMAP
-        A9b)."""
+        """Advance the priced DDR4 clock by this tick's resident-program
+        executions: inner step t runs the capacity program at occupancy
+        = |lanes with steps > t| (masked lanes bill zero, so the
+        per-occupancy price IS the masked execution's price)."""
         for m in self.tick_masks(steps):
             occ = int(m.sum())
             self.program_ticks += 1
             self.occupancy_ticks[occ] = self.occupancy_ticks.get(occ, 0) + 1
+            cost = self.engine.decode_tick_cost_s(occ) \
+                if self.engine.decode_program is not None else None
+            if cost is not None:
+                self.sim_time_s += cost
 
     @torch.no_grad()
     def tick(self):
