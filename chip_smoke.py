@@ -100,6 +100,22 @@ Phases, each printing one JSON line:
      engine serves from 8 DIMMs, and its priced DDR4 clock
      (`sim_time_s`) must equal its program ticks priced one by one, in
      the order they ran;
+  7b. the functional PUD simulator (`sim_llama2_7b`): part 0 of phase
+     4a's 8-DIMM decode program (its 28 or 29 leaves, about four decode
+     layers) staged in simulated DDR4 on the card and run through
+     `GemvProgram.run` (the fused wave-major executor) on seeded (4, N)
+     activations: staged state on cuda; each leaf's integer partials
+     bitwise an exact float64 product of its codes; outputs within
+     rtol 1e-4 / atol 1e-4·max|B2| of `run_kernel` (B2); the layer-major
+     oracle bitwise (outputs and per-(lane, tile) counts); the bf16
+     batcher's 1-lane and 3-lane tick masks (active rows bitwise, masked
+     rows 0, masked lanes billing 0 ops); the executed DDR4 price's bank
+     term equal to `simulated_wave_time` and its `e_total` to the
+     ledger's energy, beside the analytic price at the run's bit
+     density; one 4096→4096 leaf under transient faults with retries
+     (coverage 1.0, outputs bitwise the fault-free run's, retries in the
+     price). Reports tiles, staging and run seconds, host waits per run
+     and the staged GB;
   8. slice, the baseline: every linear a q2 `QuantizedTensor` (float
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
@@ -946,6 +962,229 @@ def phase_residency(cfg, qparams) -> dict:
     out["b2_whole_block"] = parts
     out["b2_whole_block_launches"] = len(parts)
     emit(out)
+    return out, eng8
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the functional PUD simulator on part 0 of the 8-DIMM program
+# ---------------------------------------------------------------------------
+
+SIM_BER = 0.05             # transient MAJX upsets per (lane, tile) a wave
+SIM_RETRIES = 4            # wave retries before the recovery ladder
+
+
+def _tile_counts(rep) -> list:
+    """Per-(layer, lane) per-tile runtime OpCounts of a ProgramReport."""
+    return [[r.tile_runtime for r in layer.requests] for layer in rep.reports]
+
+
+def _timed_run(prog, xs, **kw):
+    """One `prog.run`, its wall seconds and the host's waits on the device
+    in it (the sync debug mode's warnings)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            outs, rep = prog.run(xs, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    return outs, rep, dt, waits
+
+
+def phase_sim(eng8, tick_masks) -> dict:
+    """The functional PUD simulator at full width: part 0 of the 8-DIMM
+    `ServeEngine`'s decode program (phase 4a's `eng8`), its bit state
+    staged on the card, run on seeded (B, N) activations through
+    `GemvProgram.run` (the fused wave-major executor). Checks: every
+    staged tensor on cuda; each leaf's integer partials equal to an
+    independent exact product of the activation and weight codes (float64
+    on the card), bitwise; outputs within rtol 1e-4 / atol 1e-4·max|B2|
+    of `run_kernel` (B2); the layer-major oracle bitwise in outputs and
+    per-(lane, tile) counts; two occupancy masks of the bf16 batcher's
+    ticks (1 and 3 lanes) with active rows bitwise the full run's, masked
+    rows 0 and masked lanes billing 0 ops; `price_program(executed=)`'s
+    bank term (its price with the command bus's time at 0) equal to
+    `simulated_wave_time` and its `e_total` equal to the executed ledger's
+    energy; one 4096→4096 leaf under transient faults with retries:
+    detection coverage 1.0, outputs bitwise the fault-free run's, the
+    retry waves in the price. Prices are the DDR4 model's, not the
+    card's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import MVDRAMEngine
+    from repro_torch.core.pud.faults import FaultModel, FaultPolicy
+    from repro_torch.core.pud.timing import simulated_wave_time
+    from repro_torch.core.quant import quantize_activations
+    mv = eng8.mvdram
+    prog = eng8.decode_program.parts[0].prog
+    hs = prog.handles
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    xs = [torch.randn((B, h.weights.n), generator=gen, device="cuda")
+          for h in hs]
+    out = {"phase": "sim_llama2_7b", "card": nvidia_smi(),
+           "prices_are": "the DDR4 model's, not the card's",
+           "leaves": len(hs), "tiles": prog.sched.tiles,
+           "waves": prog.sched.waves}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stageds = [mv.staged_for(h) for h in hs]
+    torch.cuda.synchronize()
+    out["staging_s"] = time.perf_counter() - t0
+    # the first run also indexes the fused plan over the staged rows
+    outs, rep, out["first_run_s"], out["first_run_host_waits"] = \
+        _timed_run(prog, xs)
+    outs, rep, out["run_s"], out["host_waits_per_run"] = _timed_run(prog, xs)
+    on_card = all(g.bank.data.is_cuda and g.matrix_block.is_cuda
+                  and g.checksum.is_cuda for st in stageds
+                  for g in st.groups) and prog._fused.matrix.is_cuda \
+        and all(o.is_cuda for o in outs)
+    if not on_card:
+        raise AssertionError("sim: staged state or outputs off the card")
+    out["staged_gb"] = prog.sim_bytes / 1e9
+    out["staged_rows_gb"] = sum(st.nbytes for st in stageds) / 1e9
+    out["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # 2. integer partials against an exact float64 product of the codes
+    set_bits, all_bits = 0, 0
+    for h, x, part in zip(hs, xs, rep.partials):
+        aq = quantize_activations(x, h.a_spec)
+        st = mv.staged_for(h)
+        pad = st.n_chunks * st.n_sub - st.n
+        a = torch.nn.functional.pad(aq.values.double(), (0, pad))
+        w = torch.nn.functional.pad(h.wq.values.double(), (0, 0, 0, pad))
+        exact = torch.einsum("bcn,cnm->bcm",
+                             a.reshape(B, st.n_chunks, st.n_sub),
+                             w.reshape(st.n_chunks, st.n_sub, st.m))
+        if not torch.equal(part, exact.to(torch.int64)):
+            raise AssertionError(f"sim {h.name}: partials != the exact "
+                                 f"product of the codes")
+        bits = (aq.values.int()[..., None]
+                >> torch.arange(h.a_spec.bits, device="cuda")) & 1
+        set_bits += int(bits.sum())
+        all_bits += bits.numel()
+        del a, w, exact
+    out["partials_exact_leaves"] = len(hs)
+    out["bit_density"] = set_bits / all_bits
+
+    # 3. outputs against B2 over the same block
+    b2 = prog.run_kernel(xs)
+    err, scale = 0.0, 0.0
+    for h, o, k in zip(hs, outs, b2):
+        d = (o - k).abs()
+        err = max(err, float(d.max()))
+        scale = max(scale, float(k.abs().max()))
+        if bool((d > 1e-4 * k.abs() + 1e-4 * float(k.abs().max())).any()):
+            raise AssertionError(f"sim {h.name}: outputs off B2's by "
+                                 f"{float(d.max())}")
+    out["max_abs_err_vs_b2"] = err
+    out["max_abs_b2"] = scale
+
+    # 4. the layer-major oracle
+    t0 = time.perf_counter()
+    outs_l, rep_l = prog.run(xs, layer_major=True)
+    torch.cuda.synchronize()
+    out["layer_major_s"] = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(outs, outs_l)) or \
+            _tile_counts(rep) != _tile_counts(rep_l):
+        raise AssertionError("sim: fused != layer-major")
+
+    # 5. occupancy masks of the bf16 batcher's ticks
+    picked = {}
+    for m in tick_masks:
+        picked.setdefault(int(m.sum()), np.asarray(m, bool))
+    masks_run = []
+    for k in (1, 3):
+        if k not in picked:
+            raise AssertionError(f"sim: no {k}-lane tick among the "
+                                 f"batcher's masks {sorted(picked)}")
+        mask = picked[k]
+        mo, mrep, _, _ = _timed_run(prog, xs, lane_mask=mask)
+        keep = torch.from_numpy(mask).cuda()
+        for o, a in zip(mo, outs):
+            if not (torch.equal(o[keep], a[keep])
+                    and bool((o[~keep] == 0).all())):
+                raise AssertionError(f"sim: lane mask {mask} broke a row")
+        for lay_m, lay_f in zip(mrep.reports, rep.reports):
+            for b in range(B):
+                got = lay_m.requests[b].runtime
+                if mask[b] and got != lay_f.requests[b].runtime or \
+                        not mask[b] and any(got.asdict().values()):
+                    raise AssertionError(f"sim: lane {b} of mask {mask} "
+                                         f"billed {got}")
+        masks_run.append(mask.tolist())
+    out["lane_masks"] = masks_run
+
+    # 6. the executed price against the analytic one
+    def bank_term(**kw) -> float:
+        """A price's bank term: its compute time with the command bus's
+        time per slot at 0."""
+        timing = mv.timing
+        mv.timing = dataclasses.replace(timing, t_cmd=0.0)
+        try:
+            return mv.price_program(prog, batch=B, **kw).t_compute
+        finally:
+            mv.timing = timing
+
+    cost = mv.price_program(prog, batch=B, executed=rep)
+    bank = bank_term(executed=rep)
+    timing = mv.timing
+    sim_t = simulated_wave_time(rep, timing)
+    if bank != sim_t:
+        raise AssertionError(f"sim: bank term {bank} != "
+                             f"simulated_wave_time {sim_t}")
+    en, ex = mv.energy, rep.executed_counts
+    ledger_j = (en.pud_energy(ex) + en.io_energy(ex.host_bits_read
+                                                 + ex.host_bits_written)
+                + (en.host_energy(ex.host_int_ops)
+                   + en.idle_power * cost.t_compute) + 0.0 + 0.0)
+    if cost.e_total != ledger_j:
+        raise AssertionError(f"sim: e_total {cost.e_total} != the ledger's "
+                             f"{ledger_j}")
+    analytic = mv.price_program(prog, bit_density=out["bit_density"],
+                                batch=B)
+    out["executed_price"] = {"t_total": cost.t_total,
+                             "t_compute": cost.t_compute,
+                             "bank_s": bank, "e_total": cost.e_total}
+    out["analytic_price"] = {
+        "t_total": analytic.t_total, "t_compute": analytic.t_compute,
+        "bank_s": bank_term(bit_density=out["bit_density"]),
+        "e_total": analytic.e_total}
+
+    # 7. faults on one resident square leaf (4096→4096 at full width)
+    i = next(j for j, h in enumerate(hs) if h.weights.n == h.weights.m)
+    feng = MVDRAMEngine(geom=mv.geom,
+                        fault_model=FaultModel(transient_ber=SIM_BER,
+                                               seed=SEED),
+                        fault_policy=FaultPolicy(max_wave_retries=SIM_RETRIES))
+    feng.register_packed("leaf", hs[i].weights, a_spec=hs[i].a_spec)
+    fprog = feng.compile(["leaf"], b_max=B)
+    (fo,), frep, out_s, _ = _timed_run(fprog, [xs[i]])
+    tr = frep.fault
+    if not (tr.corrupted > 0 and tr.coverage == 1.0 and not tr.unresolved
+            and torch.equal(fo, outs[i])):
+        raise AssertionError(f"sim faults: {tr}")
+    fcost = feng.price_program(fprog, batch=B, executed=frep)
+    if fcost.retry_waves != len(tr.retry_wave_ops) or not \
+            fcost.retry_waves > 0 or \
+            fcost.t_retry != sum(tr.retry_wave_ops) * timing.t_op:
+        raise AssertionError(f"sim faults: retries {tr.retry_wave_ops} "
+                             f"not in the price {fcost.t_retry}")
+    out["faults"] = {"leaf": hs[i].name, "transient_ber": SIM_BER,
+                     "max_retries": SIM_RETRIES, "corrupted": tr.corrupted,
+                     "detected": tr.detected, "coverage": tr.coverage,
+                     "retries": tr.retries, "run_s": out_s,
+                     "t_retry": fcost.t_retry, "e_retry": fcost.e_retry}
+    del feng, fprog
+    emit(out)
     return out
 
 
@@ -1476,7 +1715,8 @@ def step_ms(b) -> dict:
 
 
 def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
-                  attn_kernel=False, must_run=(), dimms=1) -> dict:
+                  attn_kernel=False, must_run=(), dimms=1,
+                  masks_out=None) -> dict:
     """`ContinuousBatcher` at act_bits=4 on `ServeEngine(quantized=True)`
     (with `attn_kernel`: an int8 cache, the engine's model swapped for one
     with `attn_impl="kernel"`, attention through B4). The counts are zeroed
@@ -1489,7 +1729,8 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     lane that holds its last request's state. With `dimms` > 1 the engine
     serves from a fabric of that many DIMMs, and the batcher's priced DDR4
     clock must equal its program ticks priced one by one in the order they
-    ran."""
+    ran. `masks_out` (a list) receives every program tick's lane mask, in
+    order."""
     import collections
     import torch
     import warnings
@@ -1518,6 +1759,8 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
 
     def account(steps):
         occs.extend(int(m.sum()) for m in b.tick_masks(steps))
+        if masks_out is not None:
+            masks_out.extend(b.tick_masks(steps))
         real_account(steps)
     b._account_program = account
     reset_counts()
@@ -2195,7 +2438,7 @@ def main() -> int:
                      ("gemv_bs", "gemv_bs_fold", "program_gemv",
                       "program_gemv_fold"))
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
-    res = phase_residency(cfg, qparams)
+    res, eng8 = phase_residency(cfg, qparams)
     rows["decode_attention"] = phase_decode_attention()
     rows["quant_matmul"] = phase_quant_matmul(cfg.weight_bits)
     sa = phase_attn_kernel_slice(cfg, qparams, prompts,
@@ -2203,8 +2446,13 @@ def main() -> int:
     phase_profile(cfg, qparams)
     llama_b1 = ("gemv_bs", "gemv_bs_fold", "program_gemv",
                 "program_gemv_fold")
+    tick_masks = []
     phase_batcher(cfg, qparams, "batcher_llama2_7b_act_bits_4",
-                  must_run=llama_b1, dimms=RESIDENT_DIMMS)
+                  must_run=llama_b1, dimms=RESIDENT_DIMMS,
+                  masks_out=tick_masks)
+    phase_sim(eng8, tick_masks)
+    del eng8
+    torch.cuda.empty_cache()
     phase_batcher(cfg, qparams,
                   "batcher_llama2_7b_act_bits_4_kv8_attn_kernel",
                   max_seq=CONTEXT, attn_kernel=True, must_run=llama_b1)

@@ -1,22 +1,26 @@
 """Execution backends for the serving linears — the ONE place backend names
 live (port of the JAX package's `core/backends.py`).
 
+  `Backend.gemv(engine, handle, a, **opts)`   one registered GeMV
   `Backend.linear(engine, x, w, act_bits)`    one serving linear
   `Backend.linear_group(engine, x, ws, b)`    k linears sharing one input
                                               (q/k/v, up/gate)
   `Backend.run_program(engine, prog, xs)`     a compiled GemvProgram decode
                                               block — kernel: one B2
-                                              launch; default: per-leaf
+                                              launch; sim: the fused wave
+                                              schedule; default: per-leaf
   `Backend.kernel_impl`                       the impl string of the
                                               bit-plane entry points
 
-Two backends:
+Three backends:
   * `KERNEL` (the default): the CUDA kernels for CUDA tensors — B3 for float
     activations, B1 per leaf, and B2 fusing a group into one launch — and
-    their plain versions for CPU tensors;
+    their plain versions for CPU tensors (the JAX package's
+    `PallasBackend` twin);
   * `REFERENCE`: always the plain versions (the JAX package's `JnpBackend`
-    twin).
-The PUD simulator backend waits for the simulator's port.
+    twin, and the host path the fault-recovery ladder recomputes on);
+  * `SIM`: the bit-exact PUD simulator (`core/pud`), its state on the
+    device of the weight leaf.
 """
 from __future__ import annotations
 
@@ -34,9 +38,13 @@ class Backend(abc.ABC):
 
     @property
     @abc.abstractmethod
-    def kernel_impl(self) -> str:
-        """The `kernels/bitplane_gemv/ops.py` impl string of this
-        backend."""
+    def kernel_impl(self) -> Optional[str]:
+        """The `kernels/bitplane_gemv/ops.py` impl string of this backend;
+        None for a backend with no kernel lowering (sim)."""
+
+    @abc.abstractmethod
+    def gemv(self, engine, handle, a: torch.Tensor, **opts):
+        """Execute handle's GeMV on a (N,) vector or (B, N) lane batch."""
 
     def linear(self, engine, x: torch.Tensor, w, act_bits: Optional[int]):
         """One lane-batched serving linear on a packed weight leaf."""
@@ -82,6 +90,15 @@ class ReferenceBackend(Backend):
     def kernel_impl(self) -> str:
         return "reference"
 
+    def gemv(self, engine, handle, a, **opts):
+        from .bitplane import bitplane_gemv_bitserial, bitplane_gemv_f32
+        from .quant import quantize_activations
+        a = a.to(handle.weights.planes.device)
+        if handle.a_spec is None:
+            return bitplane_gemv_f32(a, handle.weights)
+        aq = quantize_activations(a, handle.a_spec)
+        return bitplane_gemv_bitserial(aq, handle.weights)
+
 
 class KernelBackend(Backend):
     """The CUDA kernels (plain versions for CPU tensors); a group of
@@ -93,6 +110,15 @@ class KernelBackend(Backend):
     @property
     def kernel_impl(self) -> str:
         return "kernel"
+
+    def gemv(self, engine, handle, a, *, fidelity: str = "code", **opts):
+        from ..kernels.bitplane_gemv import ops as bp_ops
+        if handle.a_spec is None:
+            return bp_ops.bitplane_gemv(a, handle.weights,
+                                        impl=self.kernel_impl)
+        return bp_ops.bitplane_gemv_bitserial(
+            a, handle.weights, handle.a_spec, impl=self.kernel_impl,
+            fidelity=fidelity)
 
     def linear_group(self, engine, x, ws, act_bits):
         if not act_bits or len(ws) < 2:
@@ -107,6 +133,64 @@ class KernelBackend(Backend):
         """The program-aware path: one B2 launch per decode block."""
         return program.run_kernel(activations, fidelity=fidelity,
                                   lane_mask=lane_mask)
+
+
+class SimBackend(Backend):
+    """Bit-exact PUD command-stream simulation (the ground truth), its bit
+    state on the device of the weight leaf.
+
+    Residency-aware: a 2-D lane batch against a handle whose placement is
+    live in the engine's pool executes against its staged rows
+    (`StagedWaves`) with zero re-staging; 1-D vectors, the naive micro-op
+    oracle and `wave=False` run the per-call staging paths — and never
+    touch (or lazily build) the resident staging. Returns (out, report).
+    """
+
+    name = "sim"
+
+    @property
+    def kernel_impl(self) -> None:
+        return None
+
+    def gemv(self, engine, handle, a, *, naive: bool = False,
+             wave=None, **opts):
+        from .pud.gemv import mvdram_gemv
+        from .quant import quantize_activations
+        if handle.a_spec is None:
+            raise ValueError("PUD simulation needs quantized activations")
+        if a.ndim not in (1, 2):
+            raise ValueError(
+                f"sim backend takes a (N,) vector or a (B, N) lane "
+                f"batch, got shape {tuple(a.shape)}")
+        if engine.is_degraded(handle):
+            # the fault-recovery ladder demoted this linear to the host
+            # path (persistent bank faults past the retry/quarantine
+            # budget) — serve it from the plain versions, no simulated
+            # command stream
+            return REFERENCE.gemv(engine, handle, a), None
+        resident_eligible = (a.ndim == 2 and not naive
+                             and wave is not False)
+        staged = engine.staged_for(handle) if resident_eligible else None
+        if staged is not None:
+            return engine.run_resident(handle, a, staged)
+        aq = quantize_activations(a.to(handle.weights.planes.device),
+                                  handle.a_spec)
+        return mvdram_gemv(aq, handle.wq, sparsity=engine.sparsity,
+                           geom=engine.geom, naive=naive,
+                           templates=handle.templates, wave=wave)
+
+    def linear(self, engine, x, w, act_bits):
+        if not act_bits:
+            raise ValueError(
+                "the sim audit route executes bit-serial command "
+                "streams — float-activation linears need act_bits")
+        return engine.sim_linear(x, w, act_bits)
+
+    def run_program(self, engine, program, activations, *,
+                    lane_mask=None, fidelity: str = "code"):
+        """The simulator executes its own fused wave schedule."""
+        outs, _report = program.run(activations, lane_mask=lane_mask)
+        return outs
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +215,7 @@ def backend_names() -> tuple:
 
 REFERENCE = register_backend(ReferenceBackend())
 KERNEL = register_backend(KernelBackend())
+SIM = register_backend(SimBackend())
 DEFAULT = KERNEL
 
 

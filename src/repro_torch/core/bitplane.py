@@ -160,3 +160,11 @@ def bitplane_gemv_bitserial(aq: QuantizedTensor, bw: BitplaneWeights
     corr = (acc - aq.zero * bw.col_sum.to(torch.int64) - bw.zero * sum_a
             + bw.n * aq.zero * bw.zero)
     return corr.to(torch.float32) * bw.scale[0] * aq.scale
+
+
+def activation_plane_popcounts(aq: QuantizedTensor) -> torch.Tensor:
+    """#set bits per activation plane, (p,) int64 — drives the sparsity
+    skip plan and the command-count model (paper §V-D template
+    selection)."""
+    planes = decompose_bits(aq.values, aq.spec.bits)
+    return planes.to(torch.int64).sum(dim=tuple(range(1, planes.ndim)))

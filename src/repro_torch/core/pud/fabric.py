@@ -37,8 +37,10 @@ CXL-attached capacity tiering (PAPERS.md) describe for DRAM-PIM:
                  (`spill_restaged_bits`) and priced exactly by
                  `timing.CxlModel` inside `price_program`.
 
-The column-chunk tensor-parallel split of one GeMV across DIMMs
-(`plan_column_shards`, `fabric_mesh`) comes with the simulator's port.
+A fabric program's parts execute in the PUD simulator
+(`engine.FabricProgram.run`, paging spilled parts in first). The
+column-chunk tensor-parallel split of one GeMV across DIMMs
+(`plan_column_shards`, `fabric_mesh`) is still to come.
 """
 from __future__ import annotations
 

@@ -272,6 +272,26 @@ def bank_waves(tiles: int, geom: PudGeometry = PudGeometry()) -> int:
     return math.ceil(tiles_per_channel / geom.banks_per_channel)
 
 
+def simulated_wave_time(report, model: DDR4Model = DDR4_2400) -> float:
+    """Bank-bound compute time from the simulator's per-wave op maxima.
+
+    The simulated counterpart of `price_gemv`'s analytic t_bank: each wave is
+    bound by its slowest bank (`TileReport.wave_max`), waves serialize. Also
+    accepts a `BatchReport` — its `wave_max` entries already sum the B
+    per-request command streams that time-share each bank — and a fused
+    `engine.ProgramReport`, whose `wave_max` entries are the EXECUTED
+    cross-layer fused waves; `price_program` reconciles its bank term
+    against exactly these counts via `executed_wave_ops`. A LAYER-MAJOR
+    run's ProgramReport carries no fused-wave counts and is rejected
+    rather than silently priced as zero seconds.
+    """
+    if getattr(report, "fused", None) is False:
+        raise ValueError(
+            "layer-major ProgramReports have no fused-wave counts; price "
+            "each reports[l].wave_max, or run the program wave-major")
+    return sum(c.pud_ops for c in report.wave_max) * model.t_op
+
+
 def price_gemv(cost: GemvCost, geom: PudGeometry = PudGeometry(),
                model: DDR4Model = DDR4_2400) -> PudCost:
     """Price an analytic GemvCost (MVDRAM or conventional PUD)."""

@@ -150,3 +150,28 @@ def dequantize_weights(qt: QuantizedTensor) -> torch.Tensor:
 
 def dequantize_activations(qt: QuantizedTensor) -> torch.Tensor:
     return (qt.values.to(torch.float32) - qt.zero) * qt.scale
+
+
+def quantized_gemv_reference(aq: QuantizedTensor, wq: QuantizedTensor
+                             ) -> torch.Tensor:
+    """Integer-domain GeMV with processor-side zero-point correction — the
+    algebra MVDRAM executes (unsigned integer MACs in DRAM, correction and
+    scaling on the processor), and the oracle the PUD simulator is held
+    against. Weight scale groups split the reduction dim."""
+    a_u = aq.values.to(torch.int64)                 # (..., N)
+    w_u = wq.values.to(device=a_u.device, dtype=torch.int64)  # (N, M)
+    n = a_u.shape[-1]
+    g = wq.scale.shape[0]
+    gs = n // g
+    a_g = a_u.reshape(*a_u.shape[:-1], g, gs)
+    w_g = w_u.reshape(g, gs, -1)
+    # exact integer partials per group (float64 holds every sum < 2^53)
+    acc = torch.einsum("...gn,gnm->...gm", a_g.to(torch.float64),
+                       w_g.to(torch.float64)).to(torch.int64)
+    sum_a = a_g.sum(dim=-1)                          # (..., g)
+    sum_w = w_g.sum(dim=1)                           # (g, M)
+    corr = (acc - aq.zero * sum_w - wq.zero * sum_a[..., None]
+            + gs * aq.zero * wq.zero)
+    out = torch.einsum("...gm,gm->...m", corr.to(torch.float32),
+                       wq.scale.to(a_u.device))
+    return out * aq.scale.to(a_u.device)
