@@ -120,6 +120,35 @@ Phases, each printing one JSON line:
      activations) through B5, 225 calls a step (and their folds) and no
      plain version;
      its prefill logits within 5 % of max|logit| of the plain versions';
+  8a. training (`train_llama2_7b`): llama2-7b at full width cut to 8 of
+     its 32 layers (1.881 G params; all 32 layers' float32 params,
+     gradients and AdamW moments, about 108 GB, outgrow the card) trains
+     8 steps through `Trainer.run` on the port's data stream: batch 8 ×
+     512 in 2 strided microbatches, bf16 compute, bf16-compressed
+     gradients, AdamW; under `torch.use_deterministic_algorithms` (scoped
+     to 8a and 8b). Holds every loss finite and the last below the
+     first, 3 steps replayed from the seed bitwise, one step with
+     layer-level remat bitwise the step without, the k=2 gradients
+     within 2e-2 (relative L2 a leaf) of k=1; reports losses, grad norms,
+     seconds per step (median of steps 2–8), tokens/s, peak and resident
+     GB, the step's bound (bf16 products, float32 attention, AdamW's
+     bytes) and the share of it reached, one step's parts;
+  8b. recovery (`train_recovery_llama2_7b`): one layer at full width, a
+     `SimulatedFailure` in a run with async checkpoints every 2 steps
+     (in a temporary directory, removed after): params and AdamW state
+     bitwise the uninterrupted run's; GB written, seconds to snapshot,
+     write and restore;
+  8c. train-then-serve (`train_to_serve_llama2_7b`): 8a's trained
+     params quantized to q2 and served through `ServeEngine(quantized=
+     True, act_bits=4)` (4 lanes, 16-token prompts from the data stream,
+     8 greedy tokens): B1 and B2 launch counts exact, no plain version,
+     every B1/B2 call of a replay bitwise its plain version, prefill
+     logits bitwise;
+  8d. column shards (`column_shards_llama2_7b`): `down` and `lm_head` at
+     full width, q2/p4, registered column-sharded over 8 DIMMs
+     (`register_sharded`) and run by the simulator on the card
+     (`gemv_sharded`, B = 4): outputs and per-tile counts bitwise the
+     unsharded `run_resident`, a lane-masked and a 1-D call;
   9. kernels: B3 over a stack of experts (`gemv_f_experts`, one launch
      per stack) at qwen2-moe-a2.7b's shapes (64 experts of 2048→1408 and
      1408→2048, q4, 8 capacity rows), with every expert full and with the
@@ -194,13 +223,20 @@ line. It needs one CUDA device and exits nonzero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 from typing import Optional
+
+# cuBLAS reads this when it makes its first handle: a fixed workspace, so
+# that the training phases can run under torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -649,12 +685,14 @@ def launches_per_pass(cfg, act_bits) -> dict:
             "gemv_f_experts_mma": stacks, "gemv_f_experts": 0}
 
 
-def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
-    """Serve the requests through the kernel backend, with the counts
-    zeroed just before and read just after: (engine, tokens, the phase
-    line's fields). Fails if a kernel of `must_run` never launched, a
-    count differs from `want`, a plain version ran, the engine holds a
-    copy of the groups' weights or the tokens are wrong."""
+def served(cfg, qparams, prompts, act_bits, must_run=(), want=None,
+           new=NEW):
+    """Serve the requests (`new` tokens each) through the kernel backend,
+    with the counts zeroed just before and read just after: (engine,
+    tokens, the phase line's fields). Fails if a kernel of `must_run`
+    never launched, a count differs from `want`, a plain version ran, the
+    engine holds a copy of the groups' weights or the tokens are
+    wrong."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     what = f"{cfg.name} act_bits={act_bits}"
@@ -671,7 +709,7 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
     held_no_copy(resident, what)
     reset_counts()
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, max_new=NEW)
+    toks = eng.generate(prompts, max_new=new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = counts()
@@ -686,14 +724,14 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None):
     if any(seen["plain"].values()):
         raise AssertionError(f"{what}: a plain version ran on the card "
                              f"({seen})")
-    if tuple(toks.shape) != (B, PROMPT + NEW) or \
+    if tuple(toks.shape) != (B, PROMPT + new) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
     if not torch.equal(toks[:, :PROMPT], prompts):
         raise AssertionError(f"{what}: prompt tokens not echoed")
     return eng, toks, {
         "tokens_shape": list(toks.shape), "seconds": dt,
-        "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
+        "tokens_per_s": B * new / dt, "wall_per_pass_ms": dt / new * 1e3,
         "setup_seconds": setup, "construct_seconds": construct,
         "placement_fallback": eng.placement_fallback,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **seen,
@@ -1991,6 +2029,433 @@ def phase_baseline_slice(cfg, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 8a-8d: training on the card, train-then-serve, the column shards
+# ---------------------------------------------------------------------------
+
+# llama2-7b at full width cut to 8 of its 32 layers: the whole model's
+# float32 params, gradients and AdamW moments (about 108 GB) outgrow the
+# card's 80 GB; 8 layers hold 1.881 G params, about 34 GB before
+# activations
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 512, 2
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 1e-3, 2
+REPLAY_STEPS = 3
+MICRO_RTOL = 2e-2          # k=2 against k=1 gradients, relative L2 a leaf
+RECOVERY_STEPS, RECOVERY_CKPT_EVERY, RECOVERY_FAIL_AT = 3, 2, 2
+SERVE_NEW = 8              # greedy tokens of the train-then-serve slice
+SHARD_DIMMS = 8
+SHARD_SHAPES = {"down": (11008, 4096), "lm_head": (4096, 32000)}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)` over the training phases,
+    the setting before restored after them, so no serving phase runs under
+    it. The mode also fills every `torch.empty` with NaN; that is turned
+    off here (every kernel of the path writes its output whole, and the
+    replay checks would show one that does not)."""
+    import torch
+    import torch.utils.deterministic as det
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        det.fill_uninitialized_memory = prev[1]
+
+
+def train_config(layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama2-7b"), num_layers=layers)
+
+
+def trainer(cfg, **tkw):
+    """The phase's `Trainer`: the global batch in TRAIN_MICRO strided
+    microbatches, bf16 compute, bf16-compressed gradients (the default),
+    AdamW with a short warmup over TRAIN_STEPS, params from the seed on
+    the card."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    return Trainer(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS),
+                   TrainerConfig(num_microbatches=TRAIN_MICRO, seed=SEED,
+                                 **tkw),
+                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                   device="cuda")
+
+
+def same_trees(a, b) -> bool:
+    from repro_torch.optim.adamw import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch_equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.dtype == y.dtype and torch.equal(x, y)
+
+
+def train_bound(cfg, tokens: int, seq: int, n_params: int) -> dict:
+    """The least time of one step (ms): the bf16 products (6·N·T over the
+    linears' N params and T tokens) at 989 TFLOP/s, the float32 einsum
+    attention (full S×S scores: QKᵀ and PV, forward and twice that
+    backward, 12·T·S·H·D a layer) at 67 TFLOP/s, and AdamW's bytes
+    (read the bf16 gradient; read and write m, v and the float32 param:
+    26 B a param) at the memory rate."""
+    e, a, layers = cfg.d_model, cfg.attn, cfg.num_layers
+    linear = layers * (2 * e * a.num_heads * a.head_dim
+                       + 2 * e * a.num_kv_heads * a.head_dim
+                       + 3 * e * cfg.d_ff) + e * cfg.vocab_size
+    mm_ops = 6 * linear * tokens
+    attn_ops = 12 * tokens * seq * a.num_heads * a.head_dim * layers
+    opt_bytes = 26 * n_params
+    terms = {"bf16_products_ms": mm_ops / PEAK_OPS_S["bfloat16"] * 1e3,
+             "f32_attention_ms": attn_ops / PEAK_OPS_S["float32"] * 1e3,
+             "adamw_bytes_ms": opt_bytes / HBM_BYTES_S * 1e3}
+    return {"bound_ms": sum(terms.values()), **terms,
+            "linear_params": linear, "bf16_tflop": mm_ops / 1e12,
+            "f32_attention_tflop": attn_ops / 1e12,
+            "adamw_gb": opt_bytes / 1e9}
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_train():
+    """llama2-7b at full width, TRAIN_LAYERS of its layers, trained on
+    the card through `Trainer.run` (the port's own data stream). Holds:
+    every loss finite and the last below the first; the first
+    REPLAY_STEPS steps run twice from the seed bitwise equal; one step
+    with layer-level remat (`Model(remat=True)`) bitwise the same step
+    without it; the k=2 microbatch gradients within MICRO_RTOL (relative
+    L2 a leaf) of one k=1 batch. Reports the loss and grad norm of every
+    step, seconds per step (median of steps 2–8), tokens/s, peak and
+    resident GB, the step's bound and the share of it reached, and one
+    step's gradient, compression and AdamW seconds apart. Returns (the
+    line, the config, the trained params quantized to q2, prompts from
+    the data stream)."""
+    import statistics
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.optim.adamw import adamw_update, tree_leaves
+    from repro_torch.parallel.compress import compress_tree_for_sync
+    from repro_torch.serve.quantize import quantize_params
+    from repro_torch.train.step import accumulate_grads
+    t_phase = time.perf_counter()
+    cfg = train_config(TRAIN_LAYERS)
+    tr = trainer(cfg)
+    n_params = count_params(tr.defs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"phase": "train_llama2_7b", "card": nvidia_smi(),
+           "config": cfg.name, "layers": cfg.num_layers,
+           "depth_cut": {"layers": 32, "trained": TRAIN_LAYERS},
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
+           "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "compress_grads": True,
+           "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+           "steps": TRAIN_STEPS,
+           "allocated_before_gb": torch.cuda.memory_allocated() / 1e9,
+           **train_bound(cfg, tokens, TRAIN_SEQ, n_params)}
+    with deterministic():
+        # bitwise replay of the first steps from the seed
+        first, _, _ = trainer(cfg).run(REPLAY_STEPS)
+        second, _, _ = trainer(cfg).run(REPLAY_STEPS)
+        if not same_trees(first, second):
+            raise AssertionError(f"train: {REPLAY_STEPS} steps replayed "
+                                 f"from the seed differ")
+        del first, second
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt_state, hist), run_s = _timed(
+            lambda: tr.run(TRAIN_STEPS, log_every=1))
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        del opt_state
+        losses = [h["loss"] for h in hist]
+        secs = [h["sec_per_step"] for h in hist]
+        med = statistics.median(secs[1:])
+        out |= {"losses": losses,
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "sec_per_step": secs, "sec_per_step_median_2_8": med,
+                "tokens_per_s": tokens / med,
+                "share_of_bound": out["bound_ms"] / 1e3 / med,
+                "run_s": run_s, "stragglers": tr.straggler_events}
+        if len(losses) != TRAIN_STEPS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"train: losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train: the loss did not fall {losses}")
+        qparams = quantize_params(params, cfg.weight_bits)
+        del params
+        torch.cuda.empty_cache()
+        prompts = tr.data.batch_at(TRAIN_STEPS, device="cuda")["tokens"][
+            :B, :PROMPT].to(torch.int64)
+
+        # one step with and without layer-level remat, from the seed's
+        # state: the same params bitwise; the parts of the plain one timed
+        batch = tr.data.batch_at(0, device="cuda")
+        stepped, remat = {}, {}
+        for on in (False, True):
+            _, p, s = tr.init_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model = Model(cfg, remat=on)
+            (g, _), g_s = _timed(lambda: accumulate_grads(
+                model, p, batch, TRAIN_MICRO))
+            g, c_s = _timed(lambda: compress_tree_for_sync(g))
+            _, a_s = _timed(lambda: adamw_update(g, s, p, tr.opt))
+            del g, s
+            peak = torch.cuda.max_memory_allocated()
+            remat[str(on)] = {"peak_gb": peak / 1e9,
+                              "peak_above_start_gb": (peak - base) / 1e9,
+                              "grads_s": g_s, "compress_s": c_s,
+                              "adamw_s": a_s}
+            stepped[on] = p
+            del p
+        remat_bitwise = same_trees(stepped[False], stepped[True])
+        del stepped
+        torch.cuda.empty_cache()
+        out["remat"] = {"bitwise": remat_bitwise, **remat}
+        if not remat_bitwise:
+            raise AssertionError("train: the step with remat differs")
+
+        # k=2 microbatches against one batch, gradients on the seed's params
+        p = init_params(tr.defs, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda")
+        model = Model(cfg)
+        g1, _ = accumulate_grads(model, p, batch, 1)
+        g2, _ = accumulate_grads(model, p, batch, TRAIN_MICRO)
+        rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(g2), tree_leaves(g1)))
+        out["microbatch_grads"] = {
+            "k": [1, TRAIN_MICRO], "max_rel_l2_a_leaf": rel,
+            "tolerance": MICRO_RTOL,
+            "grad_norm_k1": float(torch.stack(
+                [x.norm() for x in tree_leaves(g1)]).norm()),
+            "grad_norm_k2": float(torch.stack(
+                [x.norm() for x in tree_leaves(g2)]).norm())}
+        del g1
+        if not rel <= MICRO_RTOL:
+            raise AssertionError(f"train: k={TRAIN_MICRO} gradients off k=1 "
+                                 f"by {rel} (relative L2)")
+    # the same gradients with the deterministic mode off: reported, not
+    # held (does this path need the mode to replay bitwise?)
+    g_off, _ = accumulate_grads(model, p, batch, TRAIN_MICRO)
+    out["k2_grads_bitwise_with_the_mode_off"] = same_trees(g_off, g2)
+    del p, g2, g_off
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out, cfg, qparams, prompts
+
+
+def phase_train_recovery() -> dict:
+    """llama2-7b at full width, one layer (464.6 M params): an
+    uninterrupted run of RECOVERY_STEPS steps against one with a
+    checkpoint every RECOVERY_CKPT_EVERY steps (async saves) and a
+    `SimulatedFailure` before step RECOVERY_FAIL_AT: after restoring the
+    latest commit and replaying, params and AdamW state bitwise equal.
+    Reports GB written, seconds to snapshot, to finish the writes and to
+    restore; the checkpoints live in a temporary directory removed
+    afterwards. A full disk fails the run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models.params import count_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import SimulatedFailure
+    t_phase = time.perf_counter()
+    cfg = train_config(1)
+    tmp = tempfile.mkdtemp(prefix="train_recovery_")
+    timed = {"save_snapshot_s": [], "save_wait_s": [], "restore_s": []}
+    real = (ckpt.save_checkpoint, ckpt.wait_for_saves,
+            ckpt.restore_checkpoint)
+
+    def clocked(key, fn):
+        def call(*args, **kw):
+            r, dt = _timed(lambda: fn(*args, **kw))
+            timed[key].append(dt)
+            return r
+        return call
+
+    fail = {RECOVERY_FAIL_AT}
+
+    def hook(step):
+        if step in fail:
+            fail.discard(step)
+            raise SimulatedFailure(f"injected before step {step}")
+    out = {"phase": "train_recovery_llama2_7b", "card": nvidia_smi(),
+           "layers": cfg.num_layers, "steps": RECOVERY_STEPS,
+           "ckpt_every": RECOVERY_CKPT_EVERY, "failure_at": RECOVERY_FAIL_AT,
+           "disk_free_gb": shutil.disk_usage(tmp).free / 1e9}
+    try:
+        with deterministic():
+            clean = trainer(cfg)
+            p_clean, s_clean, _ = clean.run(RECOVERY_STEPS)
+            out["params"] = count_params(clean.defs)
+            faulty = trainer(cfg, ckpt_dir=tmp,
+                             ckpt_every=RECOVERY_CKPT_EVERY)
+            faulty.failure_hook = hook
+            ckpt.save_checkpoint = clocked("save_snapshot_s", real[0])
+            ckpt.wait_for_saves = clocked("save_wait_s", real[1])
+            ckpt.restore_checkpoint = clocked("restore_s", real[2])
+            try:
+                p_faulty, s_faulty, _ = faulty.run(RECOVERY_STEPS)
+            finally:
+                (ckpt.save_checkpoint, ckpt.wait_for_saves,
+                 ckpt.restore_checkpoint) = real
+        if faulty.recoveries != 1:
+            raise AssertionError(f"recovery: {faulty.recoveries} recoveries")
+        bitwise = same_trees({"p": p_clean, "s": s_clean},
+                             {"p": p_faulty, "s": s_faulty})
+        if not bitwise:
+            raise AssertionError("recovery: params or AdamW state differ "
+                                 "from the uninterrupted run's")
+        sizes = {name: sum(os.path.getsize(os.path.join(tmp, name, f))
+                           for f in os.listdir(os.path.join(tmp, name)))
+                 for name in sorted(os.listdir(tmp))}
+        out |= {"bitwise": bitwise, "recoveries": faulty.recoveries,
+                "checkpoints": {k: v / 1e9 for k, v in sizes.items()},
+                "gb_written": sum(sizes.values()) / 1e9, **timed,
+                "latest": os.path.basename(ckpt.latest_checkpoint(tmp))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del p_clean, s_clean, p_faulty, s_faulty
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def phase_train_to_serve(cfg, qparams, prompts) -> dict:
+    """The trained params quantized to q2 and served through
+    `ServeEngine(quantized=True, act_bits=4)`: 4 lanes, 16-token prompts
+    from the data stream, SERVE_NEW greedy tokens. B1 and B2 (and their
+    folds) must run, every launch count exact, no plain version; a replay
+    holds every B1 and B2 call bitwise against its plain version; the
+    prefill logits bitwise those of the plain versions. Reports how many
+    generated tokens follow the data's recurrence (5·t + 17 + ε, ε ∈
+    {0, 1, 2}, mod vocab)."""
+    import torch
+    t_phase = time.perf_counter()
+    want = {k: v * SERVE_NEW for k, v in launches_per_pass(cfg, 4).items()}
+    eng, toks, fields = served(cfg, qparams, prompts, 4,
+                               ("gemv_bs", "gemv_bs_fold", "program_gemv",
+                                "program_gemv_fold"), want, new=SERVE_NEW)
+    held = held_on_path(eng, prompts, new=SERVE_NEW)
+    for k in ("gemv_bs", "program_gemv"):
+        if held[k]["calls"] <= 0:
+            raise AssertionError(f"train-to-serve: no {k} call held")
+    with torch.no_grad():
+        got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
+                                   eng.max_seq)
+    plain = prefill_logits(cfg, qparams, prompts, 4, "reference")
+    if not torch.equal(got, plain):
+        raise AssertionError("train-to-serve: kernel prefill logits != "
+                             "plain logits")
+    t = toks.to(torch.int64)
+    eps = (t[:, PROMPT:] - 5 * t[:, PROMPT - 1:-1] - 17) % cfg.vocab_size
+    out = {"phase": "train_to_serve_llama2_7b", **fields,
+           "held_on_path": held,
+           "recurrence_hits": int((eps <= 2).sum()),
+           "generated": int(eps.numel()),
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_column_shards() -> dict:
+    """llama2-7b's `down` (11008→4096) and `lm_head` (4096→32000) at full
+    width, q2 weights, 4-bit activations, each registered column-sharded
+    over a fresh SHARD_DIMMS-DIMM `FabricPool` (`register_sharded`) and run
+    by the simulator on the card (`gemv_sharded`) on B = 4 seeded
+    activations. Holds the outputs bitwise the unsharded `run_resident` of
+    the same matrix on one pool, every shard's per-(lane, tile) counts
+    equal to the unsharded tiles they cover, one lane-masked call
+    (masked row 0, the others bitwise) and one 1-D call. Reports shards,
+    tiles per shard, the resolved spec, registration, staging and run
+    seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import MVDRAMEngine
+    from repro_torch.core.pud.fabric import FabricPool
+    from repro_torch.core.quant import QuantSpec
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    out = {"phase": "column_shards_llama2_7b", "card": nvidia_smi(),
+           "dimms": SHARD_DIMMS, "weight_bits": 2, "act_bits": 4, "b": B,
+           "matrices": {}}
+    wspec, aspec = QuantSpec(bits=2), QuantSpec(bits=4)
+    for name, (n, m) in SHARD_SHAPES.items():
+        w = torch.randn((n, m), generator=gen, device="cuda") * n ** -0.5
+        x = torch.randn((B, n), generator=gen, device="cuda")
+        eng = MVDRAMEngine(pool=FabricPool(dimms=SHARD_DIMMS))
+        sh, reg_s = _timed(lambda: eng.register_sharded(name, w, wspec,
+                                                        a_spec=aspec))
+        stageds, stage_s = _timed(lambda: [eng.staged_for(h)
+                                           for h in sh.parts])
+        (got, reps), first_s = _timed(lambda: eng.gemv_sharded(sh, x))
+        (got, reps), run_s = _timed(lambda: eng.gemv_sharded(sh, x))
+        oracle = MVDRAMEngine()
+        h = oracle.register(name, w, wspec, a_spec=aspec)
+        st, o_stage_s = _timed(lambda: oracle.staged_for(h))
+        (ref, rref), o_run_s = _timed(lambda: oracle.run_resident(h, x, st))
+        if not (got.is_cuda and torch.equal(got, ref)):
+            raise AssertionError(f"shards {name}: output != unsharded")
+        # shard d's tile (ci, cj) is the unsharded tile (ci, lo + cj)
+        bounds, cc = sh.plan.chunk_bounds, sh.plan.col_chunks
+        for d, rep in enumerate(reps):
+            cc_d = bounds[d + 1] - bounds[d]
+            for b, req in enumerate(rep.requests):
+                want = rref.requests[b].tile_runtime
+                for t, c in enumerate(req.tile_runtime):
+                    ci, cj = divmod(t, cc_d)
+                    if c.asdict() != want[ci * cc + bounds[d] + cj].asdict():
+                        raise AssertionError(
+                            f"shards {name}: shard {d} lane {b} tile {t} "
+                            f"counts differ from the unsharded tile")
+        mask = np.array([True, False, True, True])
+        om, _ = eng.gemv_sharded(sh, x, lane_mask=mask)
+        if not (torch.equal(om[mask], ref[mask]) and
+                not bool(om[~mask].any())):
+            raise AssertionError(f"shards {name}: lane-masked call wrong")
+        o1, _ = eng.gemv_sharded(sh, x[0])
+        r1, _ = oracle.run_resident(h, x[:1], st)
+        if not (o1.ndim == 1 and torch.equal(o1, r1[0])):
+            raise AssertionError(f"shards {name}: 1-D call wrong")
+        out["matrices"][name] = {
+            "n": n, "m": m, "shards": sh.shards, "pspec": sh.plan.pspec,
+            "col_chunks": cc, "chunk_bounds": bounds,
+            "col_bounds": sh.col_bounds,
+            "tiles_per_shard": [s.n_chunks * s.col_chunks for s in stageds],
+            "dimm_of_shard": [eng.pool.dimm_of(p.name) for p in sh.parts],
+            "register_s": reg_s, "staging_s": stage_s,
+            "first_run_s": first_s, "run_s": run_s,
+            "unsharded_staging_s": o_stage_s, "unsharded_run_s": o_run_s,
+            "staged_gb": sum(s.nbytes for s in stageds) / 1e9,
+            "max_abs_out": float(ref.abs().max())}
+        del eng, oracle, stageds, st, w, x
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: B3 over a stack of experts against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2268,7 +2733,7 @@ class ForcedRoutes:
         moe._route = self.real
 
 
-def held_on_path(eng, prompts) -> dict:
+def held_on_path(eng, prompts, new=NEW) -> dict:
     """Replay the requests with every stacked B3 call held against its
     plain version on the same inputs (rtol/atol 1e-5), and every B1 and B2
     call bitwise (after the counted run). Also, for each `live` bound the
@@ -2311,7 +2776,7 @@ def held_on_path(eng, prompts) -> dict:
     kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = (
         experts, leaf, group)
     try:
-        eng.generate(prompts, max_new=NEW)
+        eng.generate(prompts, max_new=new)
     finally:
         kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = real
     return {**{k: {"calls": len(v), "max_abs_err": max(v, default=None)}
@@ -2460,6 +2925,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sb = phase_baseline_slice(cfg, prompts)
     torch.cuda.empty_cache()          # llama2-7b's weights are all freed
+
+    # training at full width, train-then-serve, the column shards
+    _, tcfg, tq, tprompts = phase_train()
+    phase_train_recovery()
+    phase_train_to_serve(tcfg, tq, tprompts)
+    del tq
+    torch.cuda.empty_cache()
+    phase_column_shards()
 
     _, rows["gemv_f_experts_mma"] = phase_expert_kernels()
     moe_cfg, moe_params, moe_prompts = phase_zoo_model(MOE_ARCH)

@@ -72,3 +72,17 @@ def quantized_from_numpy(values, scale, zero: int, spec, col_sum=None,
                        group_size=spec.group_size),
         col_sum=None if col_sum is None else _tensor(
             np.asarray(col_sum, np.int32), device))
+
+
+def opt_state_from_numpy(state, device=None) -> dict:
+    """A JAX AdamW state {"m": tree, "v": tree, "count": ()} whose leaves
+    are numpy → the port's (`optim.adamw`): float32 moments and a 0-dim
+    int32 count on `device` (the GPU unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        return _tensor(np.asarray(t, np.float32), device)
+    return {"m": f32(state["m"]), "v": f32(state["v"]),
+            "count": _tensor(np.asarray(state["count"], np.int32), device)}

@@ -36,8 +36,14 @@ launch (`kernels/bitplane_gemv/program.py:run_program`, the CUDA
 `group_kernel` over a member table that reads every leaf in place), bitwise
 equal to per-leaf B1 — the yardstick the simulator's outputs are held
 against. Serving's per-linear routing (`linear`, `linear_group`,
-`packed_group`, `EngineLinear`) is the port's earlier slices'. The
-column-sharded registration across DIMMs is still to come.
+`packed_group`, `EngineLinear`) is the port's earlier slices'.
+
+One GeMV can also be registered column-sharded across a fabric's DIMMs
+(`register_sharded`: quantized once, sliced into contiguous column-chunk
+shards by `fabric.plan_column_shards`, shard d placed on DIMM d mod
+dimms); `gemv_sharded` runs each shard's resident launch on the leaf's
+device and scatters the disjoint columns on the host, bitwise the
+unsharded launch.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ from . import backends as _backends
 from .backends import Backend
 from .bitplane import BitplaneWeights, from_quantized, to_quantized
 from .pud.device import _COUNT_FIELDS, OpCounts
-from .pud.fabric import FabricPool
+from .pud.fabric import ColumnShardPlan, FabricPool, plan_column_shards
 from .pud.faults import FaultModel, FaultPolicy, FaultTrace
 from .pud.gemv import (CommandTemplates, PudGeometry, StagedWaves,
                        _lane_mask_arg, build_templates,
@@ -66,7 +72,7 @@ from .pud.timing import (CXL_TIER, DDR4_2400, DDR4_ENERGY, CpuBaseline,
                          GpuBaseline, ProgramCost, combine_fabric_costs,
                          price_gemv, price_program)
 from .quant import (QuantSpec, QuantizedTensor, quantize_activations,
-                    quantize_weights)
+                    quantize_weights, slice_quantized_cols)
 
 if TYPE_CHECKING:
     from ..kernels.bitplane_gemv.program import GroupTable
@@ -139,6 +145,33 @@ class GemvHandle:
         if self._wq is None:
             self._wq = to_quantized(self.weights)
         return self._wq
+
+
+@dataclasses.dataclass
+class ShardedHandle:
+    """One GeMV registered column-chunk tensor-parallel across the fabric.
+
+    `parts[d]` is a regular `GemvHandle` over the quantized sub-matrix of
+    output columns `col_bounds[d] : col_bounds[d+1]` (sliced from ONE
+    quantization of the full matrix — `quant.slice_quantized_cols`
+    commutes with quantization, so each shard's codes equal the oracle's
+    matching columns code for code), placed on DIMM `d % dimms`. Each
+    module executes its shard's waves independently; the host scatters the
+    disjoint partial outputs (`MVDRAMEngine.gemv_sharded`), bitwise the
+    unsharded single-pool launch. `plan` records how the split was
+    expressed through the sharding rules (`fabric.plan_column_shards`).
+    """
+
+    name: str
+    parts: tuple           # (shards,) GemvHandle, one per column shard
+    col_bounds: tuple      # (shards+1,) output-column offsets into M
+    plan: ColumnShardPlan
+    n: int
+    m: int
+
+    @property
+    def shards(self) -> int:
+        return len(self.parts)
 
 
 class ProgramReport:
@@ -779,6 +812,7 @@ class MVDRAMEngine:
         self.fault_quarantines = 0
         self.fault_restages = 0
         self.handles: dict[str, GemvHandle] = {}
+        self.sharded: dict[str, ShardedHandle] = {}
         # the simulator's staged rows per resident handle, built lazily
         self._staged: dict[str, StagedWaves] = {}
         # leaf_key + (act_bits,) → (handle name, leaf): a leaf the serving
@@ -833,6 +867,42 @@ class MVDRAMEngine:
                 "(q, N//32, M)); stacked expert leaves are served per-expert")
         return self._install(name, bw, a_spec)
 
+    def register_sharded(self, name: str, w: torch.Tensor,
+                         w_spec: QuantSpec,
+                         a_spec: Optional[QuantSpec] = None,
+                         shards: Optional[int] = None) -> ShardedHandle:
+        """Register ONE (N, M) GeMV column-chunk tensor-parallel across the
+        fabric: quantize once, slice the quantized tensor into contiguous
+        column-chunk shards (`fabric.plan_column_shards` expresses the
+        split through `parallel/sharding.py` rules over a `launch/mesh.py`
+        host mesh of the devices of `w`'s kind), and place shard d on DIMM
+        `d % dimms` as the regular handle `{name}@shard{d}`. `shards`
+        defaults to the pool's DIMM count (1 on a plain `DramPool` — the
+        single-pool oracle configuration). Execute with `gemv_sharded`."""
+        fabric = isinstance(self.pool, FabricPool)
+        if shards is None:
+            shards = self.pool.dimms if fabric else 1
+        if shards < 1:
+            raise ValueError(f"need >= 1 shard, got {shards}")
+        wq = quantize_weights(w, w_spec)
+        n, m = int(wq.values.shape[0]), int(wq.values.shape[1])
+        q = wq.spec.bits
+        _chunk_rows, col_chunks = self._sim_grid(n, m, q)
+        plan = plan_column_shards(col_chunks, shards, device=w.device)
+        m_per_tile = max(self.geom.subarray_cols // q, 1)
+        bounds = plan.bounds_cols(m, m_per_tile)
+        dimms = self.pool.dimms if fabric else 1
+        parts = []
+        for d in range(plan.shards):
+            wq_d = slice_quantized_cols(wq, bounds[d], bounds[d + 1])
+            parts.append(self._install(
+                f"{name}@shard{d}", from_quantized(wq_d), a_spec, wq=wq_d,
+                dimm=(d % dimms) if fabric else None))
+        sh = ShardedHandle(name=name, parts=tuple(parts),
+                           col_bounds=bounds, plan=plan, n=n, m=m)
+        self.sharded[name] = sh
+        return sh
+
     def _sim_grid(self, n: int, m: int, q: int):
         """The matrix's tile grid at the SIMULATED geometry (what the pool
         places): per-chunk reduction rows + col chunks."""
@@ -845,18 +915,28 @@ class MVDRAMEngine:
 
     def _install(self, name: str, bw: BitplaneWeights,
                  a_spec: Optional[QuantSpec],
-                 wq: Optional[QuantizedTensor] = None) -> GemvHandle:
-        """Shared tail of both registration entries: one plan/template/
-        placement/handle construction."""
+                 wq: Optional[QuantizedTensor] = None,
+                 dimm: Optional[int] = None) -> GemvHandle:
+        """Shared tail of every registration entry: one plan/template/
+        placement/handle construction. `dimm` pins the placement to one
+        fabric module (the column-shard path puts shard d on DIMM d); it
+        requires a `FabricPool`."""
         p = a_spec.bits if a_spec is not None else 16
         plan = make_plan(m=bw.m, n=bw.n, q=bw.bits, p=p, geom=self.geom)
         templates = (build_templates(plan.n_sub, p)
                      if a_spec is not None else None)
         chunk_rows, col_chunks = self._sim_grid(bw.n, bw.m, bw.bits)
+        place_kwargs = {}
+        if dimm is not None:
+            if not isinstance(self.pool, FabricPool):
+                raise ValueError(
+                    f"dimm={dimm} pinning needs a FabricPool; this engine's "
+                    f"pool is a {type(self.pool).__name__}")
+            place_kwargs["dimm"] = dimm
         placement = self.pool.place(
             name, chunk_rows, col_chunks,
             replace=(name in self.handles or self.pool.is_resident(name)),
-            on_full=self.on_full)
+            on_full=self.on_full, **place_kwargs)
         self._staged.pop(name, None)
         h = GemvHandle(name=name, weights=bw, plan=plan, a_spec=a_spec,
                        templates=templates, placement=placement, _wq=wq)
@@ -962,6 +1042,45 @@ class MVDRAMEngine:
                                            device=out.device)[:, None]
                     out = torch.where(keep, out, 0.0)
         return out, report
+
+    def gemv_sharded(self, sharded: Union[ShardedHandle, str],
+                     a: torch.Tensor,
+                     lane_mask: Optional[np.ndarray] = None):
+        """Execute a column-sharded GeMV: each shard runs its resident
+        simulator launch (`run_resident`, on the leaf's device) on its own
+        DIMM's banks, and the host scatters the per-shard partials into the
+        full (B, M) output — the shards cover DISJOINT output columns, so
+        the result is bitwise the unsharded single-pool launch. Returns
+        (out on `a`'s device, (per-shard BatchReport, ...))."""
+        sh = self.sharded[sharded] if isinstance(sharded, str) else sharded
+        if self.sharded.get(sh.name) is not sh:
+            raise ValueError(
+                f"stale sharded handle {sh.name!r}: the name was "
+                f"re-registered; re-resolve it before launching")
+        x = a
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[None, :]
+        if x.shape[-1] != sh.n:
+            raise ValueError(
+                f"sharded GeMV {sh.name!r} expects (..., {sh.n}) "
+                f"activations, got shape {tuple(x.shape)}")
+        out = torch.zeros((int(x.shape[0]), sh.m), dtype=torch.float32)
+        reports = []
+        for d, part in enumerate(sh.parts):
+            staged = self.staged_for(part)
+            if staged is None:
+                raise ValueError(
+                    f"shard {part.name!r} of {sh.name!r} is no longer "
+                    f"resident (evicted?); re-register the sharded GeMV")
+            o, rep = self.run_resident(part, x, staged, lane_mask=lane_mask)
+            lo, hi = sh.col_bounds[d], sh.col_bounds[d + 1]
+            # disjoint column ranges: the host-side reduction is an exact
+            # scatter of each module's partial into its slice
+            out[:, lo:hi] += o.to(device="cpu", dtype=torch.float32)
+            reports.append(rep)
+        out = out[0] if squeeze else out
+        return out.to(a.device), tuple(reports)
 
     # -- fault recovery (ABFT escalation ladder) ------------------------------
 

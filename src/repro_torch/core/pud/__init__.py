@@ -29,7 +29,8 @@ from .schedule import (BatchSchedule, ProgramSchedule, ProgramSlot,
                        schedule_batch, schedule_program, schedule_tiles)
 from .residency import (CapacityError, DramPool, Placement, ResidencyError,
                         RowSpan, tile_resident_rows)
-from .fabric import FabricPool, SpillEntry, requested_rows
+from .fabric import (ColumnShardPlan, FabricPool, SpillEntry, fabric_mesh,
+                     plan_column_shards, requested_rows)
 from .gemv import (BatchReport, BitOffsetTemplate, CommandTemplates,
                    FusedProgram, GemvCost, ProgramRunResult, StagedWaves,
                    TileReport, build_templates, conventional_pud_cost,

@@ -37,10 +37,14 @@ CXL-attached capacity tiering (PAPERS.md) describe for DRAM-PIM:
                  (`spill_restaged_bits`) and priced exactly by
                  `timing.CxlModel` inside `price_program`.
 
+  plan_column_shards / fabric_mesh
+                 the column-chunk tensor-parallel split of ONE GeMV
+                 across DIMMs (`engine.register_sharded`), expressed
+                 through the sharding rules (`parallel/sharding.py`) over
+                 a host mesh (`launch/mesh.py`).
+
 A fabric program's parts execute in the PUD simulator
-(`engine.FabricProgram.run`, paging spilled parts in first). The
-column-chunk tensor-parallel split of one GeMV across DIMMs
-(`plan_column_shards`, `fabric_mesh`) is still to come.
+(`engine.FabricProgram.run`, paging spilled parts in first).
 """
 from __future__ import annotations
 
@@ -71,6 +75,67 @@ class SpillEntry:
     @property
     def rows(self) -> int:
         return requested_rows(self.chunk_rows, self.col_chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnShardPlan:
+    """Contiguous column-chunk ranges of one GeMV, one per shard.
+
+    `chunk_bounds[d] : chunk_bounds[d+1]` is shard d's slice of the column
+    chunks (np.array_split-style: sizes differ by at most one, ragged last
+    chunk included). `pspec` records how the sharding rules resolved the
+    logical "mlp" (output-column) axis on the fabric mesh — `"model"` when
+    the mesh's model axis divides the chunks, `None` (replicated,
+    host-side reduction only) otherwise.
+    """
+
+    col_chunks: int
+    shards: int
+    chunk_bounds: tuple
+    axis: str = "mlp"
+    pspec: tuple = (None,)
+
+    def bounds_cols(self, m: int, m_per_tile: int) -> tuple:
+        """Chunk bounds converted to output-column offsets into M."""
+        return tuple(min(cb * m_per_tile, m) for cb in self.chunk_bounds)
+
+
+def fabric_mesh(dimms: int, device=None):
+    """Host mesh whose "model" axis carries the per-DIMM column shards,
+    over the devices `launch.mesh.make_host_mesh` covers (capped at their
+    count)."""
+    from ...launch.mesh import make_host_mesh
+
+    if dimms < 1:
+        raise ValueError(f"fabric mesh needs >= 1 DIMM, got {dimms}")
+    return make_host_mesh(model=dimms, device=device)
+
+
+def plan_column_shards(col_chunks: int, shards: int, mesh=None,
+                       rules=None, device=None) -> ColumnShardPlan:
+    """Split `col_chunks` column chunks of one GeMV into `shards`
+    contiguous ranges, expressing the split through the sharding rules:
+    the logical "mlp" axis (output columns) maps onto the mesh "model"
+    axis exactly as `parallel/sharding.py` would shard an MLP weight. The
+    mesh defaults to `fabric_mesh(shards, device)`."""
+    if col_chunks < 1:
+        raise ValueError(f"need >= 1 column chunk, got {col_chunks}")
+    if shards < 1:
+        raise ValueError(f"need >= 1 shard, got {shards}")
+    shards = min(shards, col_chunks)
+    base, extra = divmod(col_chunks, shards)
+    bounds = [0]
+    for d in range(shards):
+        bounds.append(bounds[-1] + base + (1 if d < extra else 0))
+    from ...parallel.sharding import axis_rules, logical_to_pspec
+
+    rules = dict(rules or {"mlp": "model"})
+    if mesh is None:
+        mesh = fabric_mesh(shards, device)
+    with axis_rules(mesh, rules):
+        spec = logical_to_pspec(("mlp",), (col_chunks,), mesh, rules)
+    return ColumnShardPlan(col_chunks=col_chunks, shards=shards,
+                           chunk_bounds=tuple(bounds), pspec=tuple(spec))
 
 
 class FabricPool:

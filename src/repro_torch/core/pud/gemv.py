@@ -48,7 +48,8 @@ off (`adder.code_matmul`), exact because no sum reaches 2^24. The float
 epilogue (`_aggregate_host`) follows the JAX package's order in float64, so
 outputs on the CPU equal its simulator's bit for bit.
 
-The column-sharded split of one GeMV across DIMMs is still to come.
+A column-sharded GeMV (`engine.MVDRAMEngine.gemv_sharded`) runs each
+shard's resident launch here and scatters the disjoint columns on the host.
 """
 from __future__ import annotations
 

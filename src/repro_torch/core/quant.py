@@ -175,3 +175,86 @@ def quantized_gemv_reference(aq: QuantizedTensor, wq: QuantizedTensor
     out = torch.einsum("...gm,gm->...m", corr.to(torch.float32),
                        wq.scale.to(a_u.device))
     return out * aq.scale.to(a_u.device)
+
+
+def slice_quantized_cols(wq: QuantizedTensor, lo: int, hi: int
+                         ) -> QuantizedTensor:
+    """Column slice [lo, hi) of a quantized (N, M) weight tensor (views).
+
+    Slicing COMMUTES with quantization: scales are per (group, column),
+    the zero point is a tensor-wide constant and `col_sum` is per output
+    column, so `slice_quantized_cols(quantize_weights(w), lo, hi)` equals
+    `quantize_weights(w[:, lo:hi])` code for code — the algebra of the
+    fabric's column-sharded GeMV."""
+    if wq.values.ndim != 2:
+        raise ValueError(
+            f"column slicing needs a (N, M) weight tensor, got shape "
+            f"{tuple(wq.values.shape)}")
+    m = wq.values.shape[1]
+    if not 0 <= lo < hi <= m:
+        raise ValueError(
+            f"column slice [{lo}, {hi}) out of range for M={m}")
+    return QuantizedTensor(
+        values=wq.values[:, lo:hi], scale=wq.scale[:, lo:hi],
+        zero=wq.zero, spec=wq.spec,
+        col_sum=None if wq.col_sum is None else wq.col_sum[lo:hi])
+
+
+# ---------------------------------------------------------------------------
+# Straight-through fake quantization (quantization-aware training, so that a
+# trained model can be served through the bit-plane engine)
+# ---------------------------------------------------------------------------
+
+class _FakeQuant(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, w, bits, group_size):
+        spec = QuantSpec(bits=bits, group_size=group_size)
+        if w.ndim == 1:
+            qt = quantize_weights(w[:, None], spec)
+            return dequantize_weights(qt)[:, 0]
+        w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
+        return dequantize_weights(quantize_weights(w2, spec)).reshape(w.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None            # straight through
+
+
+def fake_quant(w: torch.Tensor, bits: int, group_size: int) -> torch.Tensor:
+    """Quantize then dequantize (float32 out) with a straight-through
+    gradient. A 1-D leaf is one column; a leaf of more than 2 dims is
+    (shape[0], rest)."""
+    return _FakeQuant.apply(w, bits, group_size)
+
+
+# Code words are computed in int64 (torch has no uint32 arithmetic on every
+# device) and stored as int32 bit patterns, the port's convention for
+# uint32 words (as `BitplaneWeights.planes`).
+
+def pack_codes(values: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack uint codes along the LAST axis into 32-bit words (little-endian
+    within the word; int32 bit patterns); zero-pads to a word boundary."""
+    per = 32 // bits
+    *lead, n = values.shape
+    pad = (-n) % per
+    v = values.to(torch.int64)
+    if pad:
+        v = torch.cat([v, v.new_zeros((*lead, pad))], dim=-1)
+        n += pad
+    shifts = torch.arange(per, dtype=torch.int64, device=v.device) * bits
+    words = (v.reshape(*lead, n // per, per) << shifts).sum(dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words
+                       ).to(torch.int32)
+
+
+def unpack_codes(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """The inverse of `pack_codes`: (..., W) words (int32 bit patterns, or
+    any integer type holding the uint32 value) → (..., n) uint8 codes."""
+    per = 32 // bits
+    shifts = torch.arange(per, dtype=torch.int64,
+                          device=packed.device) * bits
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    v = (words[..., None] >> shifts) & ((1 << bits) - 1)
+    return v.reshape(*packed.shape[:-1], packed.shape[-1] * per
+                     )[..., :n].to(torch.uint8)

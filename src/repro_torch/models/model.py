@@ -13,8 +13,9 @@ along a leading "stack" axis, and so are their decode caches:
              shared[r mod num_shared_blocks] but its own cache shared[r]
   trailing — remainder layers (zamba2: 81 = 13·6 + 3)
 The JAX package runs a `lax.scan` over each stack; here it is a Python
-loop over layers. Three entry points:
-  forward(params, batch)                 → logits  [scoring]
+loop over layers, each stacked parameter unbound once a pass (views; one
+stack op a leaf in the backward). Three entry points:
+  forward(params, batch)                 → logits, aux  [scoring, training]
   prefill(params, batch, max_seq)        → logits, cache
   decode_step(params, cache, inp, pos)   → logits, cache   [one token]
 A batch holds "tokens" (B, S), or "embeddings" (B, S, E) for a config
@@ -27,6 +28,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -241,6 +243,18 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked parameter tree: tensor leaves unbound
+    along their leading stack axis (views; their gradient is one stack of
+    the layers' gradients), other leaves (bit-plane, quantized) indexed."""
+    if isinstance(tree, dict):
+        cols = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    return [tree[i] for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Stage application
 # ---------------------------------------------------------------------------
@@ -288,12 +302,17 @@ class Model:
     """Functional wrapper bound to a ModelConfig."""
 
     def __init__(self, cfg: ModelConfig, act_bits: Optional[int] = None,
-                 impl=None, kv_bits: Optional[int] = None,
-                 attn_impl: str = "sdpa"):
+                 impl=None, remat: bool = False,
+                 kv_bits: Optional[int] = None, attn_impl: str = "sdpa"):
         check_supported(cfg)
         self.cfg = cfg
         self.act_bits = act_bits
         self.impl = impl
+        # layer-level remat of `forward` under autograd: each leading or
+        # trailing layer and each pattern group (with its shared-block
+        # invocation) is one `torch.utils.checkpoint` unit, as each scan
+        # body is one `jax.checkpoint` in the JAX package
+        self.remat = remat
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
@@ -308,26 +327,38 @@ class Model:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
 
-    def _layers(self, params):
-        """(layer params, stack name, index in the stack's cache, kind) in
-        layer order: the leading dense-FFN layers, then each pattern
-        group's stages followed by its shared-block invocation (group r
-        reads parameter set r mod num_shared_blocks and cache r), then the
-        trailing layers."""
+    def _units(self, params) -> list:
+        """The layers in order, grouped as the JAX package's scan bodies:
+        each leading dense-FFN layer alone; each pattern group's stages
+        followed by its shared-block invocation (group r reads parameter
+        set r mod num_shared_blocks and cache r); each trailing layer
+        alone. A layer is (layer params, stack name, index in the stack's
+        cache, kind)."""
         cfg, plan = self.cfg, stack_plan(self.cfg)
-        for r in range(plan.first):
-            yield layer_params(params["first"], r), "first", r, cfg.pattern[0]
+        units = []
+        if plan.first:
+            units += [[(p, "first", r, cfg.pattern[0])] for r, p in
+                      enumerate(_unstack(params["first"], plan.first))]
+        stages = [_unstack(params["stages"][str(i)], plan.repeats)
+                  for i in range(len(cfg.pattern))]
+        shared = (_unstack(params["shared"], cfg.num_shared_blocks)
+                  if cfg.num_shared_blocks else None)
         for r in range(plan.repeats):
-            for i, kind in enumerate(cfg.pattern):
-                yield (layer_params(params["stages"][str(i)], r), str(i), r,
-                       kind)
-            if cfg.num_shared_blocks:
-                yield (layer_params(params["shared"],
-                                    r % cfg.num_shared_blocks),
-                       "shared", r, "attn")
-        for r in range(plan.trailing):
-            yield (layer_params(params["trailing"], r), "trailing", r,
-                   cfg.pattern[0])
+            unit = [(stages[i][r], str(i), r, kind)
+                    for i, kind in enumerate(cfg.pattern)]
+            if shared:
+                unit.append((shared[r % cfg.num_shared_blocks], "shared", r,
+                             "attn"))
+            units.append(unit)
+        if plan.trailing:
+            units += [[(p, "trailing", r, cfg.pattern[0])] for r, p in
+                      enumerate(_unstack(params["trailing"], plan.trailing))]
+        return units
+
+    def _layers(self, params):
+        """Every layer of `_units`, in order."""
+        for unit in self._units(params):
+            yield from unit
 
     def _embed_in(self, params, batch):
         """batch["embeddings"] (a stubbed frontend's) in the model's dtype,
@@ -364,23 +395,36 @@ class Model:
     def forward(self, params, batch):
         """batch: {"tokens" (B,S) | "embeddings" (B,S,E)} → logits
         (B,S,V), aux loss (the MoE routers' summed over layers; 0 without
-        MoE)."""
+        MoE). Differentiable in the float parameters; with `remat` and
+        autograd on, each unit of `_units` is recomputed in the
+        backward instead of keeping its activations."""
         cfg = self.cfg
         x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         ab, impl = self.act_bits, self.impl
+
+        def run(x, aux, unit):
+            for p, _name, _r, kind in unit:
+                if kind == "mamba":
+                    h, _ = ssm_mod.mamba_forward(
+                        norm(x, p["ln"], cfg.norm_type), p["mamba"], cfg, ab,
+                        impl)
+                    x = x + h
+                    continue
+                h = self._attention(norm(x, p["ln1"], cfg.norm_type), p,
+                                    kind, positions)
+                x, a = _finish_stage(x, h, p, cfg, ab, impl)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        remat = self.remat and torch.is_grad_enabled()
         aux = torch.zeros((), device=x.device)
-        for p, _name, _r, kind in self._layers(params):
-            if kind == "mamba":
-                h, _ = ssm_mod.mamba_forward(norm(x, p["ln"], cfg.norm_type),
-                                             p["mamba"], cfg, ab, impl)
-                x = x + h
-                continue
-            h = self._attention(norm(x, p["ln1"], cfg.norm_type), p, kind,
-                                positions)
-            x, a = _finish_stage(x, h, p, cfg, ab, impl)
-            if a is not None:
-                aux = aux + a
+        for unit in self._units(params):
+            if remat:
+                x, aux = checkpoint(run, x, aux, unit, use_reentrant=False)
+            else:
+                x, aux = run(x, aux, unit)
         x = norm(x, params["final_norm"], cfg.norm_type)
         return self._logits(params, x), aux
 
