@@ -149,6 +149,19 @@ Phases, each printing one JSON line:
      (`register_sharded`) and run by the simulator on the card
      (`gemv_sharded`, B = 4): outputs and per-tile counts bitwise the
      unsharded `run_resident`, a lane-masked and a 1-D call;
+  8e. the sharded trainer (`train_sharded_llama2_7b`): an nccl process
+     group of world size 1 in this process and a (1, 1) mesh over the
+     card; llama2-7b at full width, 2 layers, 3 steps of 8a's batch:
+     losses, params and AdamW moments bitwise the plain `Trainer`'s, its
+     async checkpoint restored into a plain `Trainer` bitwise,
+     `compressed_allreduce_mean` on nccl bitwise its plain recomputation;
+     seconds per step of both;
+  8f. the dry-run (`dryrun_llama2_7b`, on the host's meta device):
+     `launch/dryrun.py:run_cell` for llama2-7b × train_4k and decode_32k
+     on the (16, 16) production mesh, their rooflines on H100 constants
+     (the port's estimate); the same counting on 8a's training config,
+     its bound beside 8a's measured step and the hand-reckoned bound; the
+     card's memory against the constants' capacity;
   9. kernels: B3 over a stack of experts (`gemv_f_experts`, one launch
      per stack) at qwen2-moe-a2.7b's shapes (64 experts of 2048→1408 and
      1408→2048, q4, 8 capacity rows), with every expert full and with the
@@ -2045,6 +2058,9 @@ RECOVERY_STEPS, RECOVERY_CKPT_EVERY, RECOVERY_FAIL_AT = 3, 2, 2
 SERVE_NEW = 8              # greedy tokens of the train-then-serve slice
 SHARD_DIMMS = 8
 SHARD_SHAPES = {"down": (11008, 4096), "lm_head": (4096, 32000)}
+SHARDED_LAYERS, SHARDED_STEPS = 2, 3
+COMPRESS_SHAPE = (11008, 4096)   # one gradient leaf (`down`) of llama2-7b
+DRYRUN_CELLS = ("train_4k", "decode_32k")
 
 
 @contextlib.contextmanager
@@ -2072,18 +2088,18 @@ def train_config(layers: int):
     return dataclasses.replace(get_config("llama2-7b"), num_layers=layers)
 
 
-def trainer(cfg, **tkw):
+def trainer(cfg, mesh=None, **tkw):
     """The phase's `Trainer`: the global batch in TRAIN_MICRO strided
     microbatches, bf16 compute, bf16-compressed gradients (the default),
     AdamW with a short warmup over TRAIN_STEPS, params from the seed on
-    the card."""
+    the card; sharded over `mesh` when one is given."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import Trainer, TrainerConfig
     return Trainer(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                                     total_steps=TRAIN_STEPS),
                    TrainerConfig(num_microbatches=TRAIN_MICRO, seed=SEED,
                                  **tkw),
-                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                   mesh=mesh, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                    device="cuda")
 
 
@@ -2450,6 +2466,161 @@ def phase_column_shards() -> dict:
             "max_abs_out": float(ref.abs().max())}
         del eng, oracle, stageds, st, w, x
         torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def phase_train_sharded() -> dict:
+    """The sharded trainer on the one card: an `nccl` process group of
+    world size 1 in this process (from a `HashStore`), a (1, 1) ("data",
+    "model") mesh (`make_dist_mesh`), llama2-7b at full width cut to
+    SHARDED_LAYERS layers, the phase-8a batch (8 × 512 in 2 microbatches),
+    SHARDED_STEPS steps with an async checkpoint at the last. Holds: the
+    losses, params and AdamW state bitwise the plain one-device
+    `Trainer`'s from the same seed; the sharded run's checkpoint restored
+    into a plain `Trainer` bitwise; `compressed_allreduce_mean` on NCCL
+    over a gradient-sized leaf bitwise its plain recomputation (the bf16
+    round trip, /1, the int8 absmax round trip). Reports seconds per step
+    of both trainers and the collective's time. The checkpoints live in a
+    temporary directory removed after; the group is destroyed."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dist_mesh
+    from repro_torch.parallel.compress import (compressed_allreduce_mean,
+                                               int8_dequantize,
+                                               int8_quantize)
+    t_phase = time.perf_counter()
+    cfg = train_config(SHARDED_LAYERS)
+    out = {"phase": "train_sharded_llama2_7b", "card": nvidia_smi(),
+           "layers": cfg.num_layers, "steps": SHARDED_STEPS,
+           "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    tmp = tempfile.mkdtemp(prefix="train_sharded_")
+    try:
+        mesh = make_dist_mesh((1, 1), ("data", "model"))
+        with deterministic():
+            p_plain, s_plain, h_plain = trainer(cfg).run(SHARDED_STEPS,
+                                                         log_every=1)
+            sharded = trainer(cfg, mesh, ckpt_dir=tmp,
+                              ckpt_every=SHARDED_STEPS)
+            p_shard, s_shard, h_shard = sharded.run(SHARDED_STEPS,
+                                                    log_every=1)
+            full = {"params": _gathered(p_shard), "opt": _gathered(s_shard)}
+            del p_shard, s_shard
+            if not [h["loss"] for h in h_shard] == \
+                    [h["loss"] for h in h_plain]:
+                raise AssertionError(f"sharded: losses {h_shard} != the "
+                                     f"plain trainer's {h_plain}")
+            if not same_trees(full, {"params": p_plain, "opt": s_plain}):
+                raise AssertionError("sharded: params or AdamW state "
+                                     "differ from the plain trainer's")
+            del p_plain, s_plain
+            torch.cuda.empty_cache()
+            plain = trainer(cfg, ckpt_dir=tmp)
+            (step, p_rest, s_rest), restore_s = _timed(
+                plain.restore_or_init)
+            if not (step == SHARDED_STEPS and same_trees(
+                    {"params": p_rest, "opt": s_rest}, full)):
+                raise AssertionError(f"sharded: its checkpoint (step "
+                                     f"{step}) does not restore bitwise "
+                                     f"into the plain trainer")
+            del p_rest, s_rest, full
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+        g = torch.randn(COMPRESS_SHAPE, generator=gen, device="cuda")
+        got, comm_s = _timed(lambda: compressed_allreduce_mean(g))
+        want, plain_s = _timed(lambda: int8_dequantize(*int8_quantize(
+            g.to(torch.bfloat16).to(torch.float32) / 1)).reshape(g.shape))
+        if not (got.dtype == g.dtype and torch.equal(got, want)):
+            raise AssertionError("compressed_allreduce_mean on NCCL at "
+                                 "world 1 != its plain recomputation")
+        out |= {
+            "mesh": mesh.shape, "backend": dist.get_backend(),
+            "losses": [h["loss"] for h in h_shard],
+            "bitwise_plain": True, "checkpoint_restores_bitwise": True,
+            "sec_per_step_sharded": [h["sec_per_step"] for h in h_shard],
+            "sec_per_step_plain": [h["sec_per_step"] for h in h_plain],
+            "restore_s": restore_s,
+            "compressed_allreduce": {
+                "shape": list(COMPRESS_SHAPE), "bitwise": True,
+                "max_abs_err_vs_input": float((got - g).abs().max()),
+                "seconds": comm_s, "plain_seconds": plain_s}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def _gathered(tree):
+    """Every DTensor leaf of a tree gathered whole (others as they are)."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+
+
+def phase_dryrun(train_out: dict) -> dict:
+    """The port's dry-run on the host (the meta device; no card memory):
+    `run_cell` for llama2-7b × DRYRUN_CELLS on the (16, 16) production
+    mesh, each record's roofline on H100 constants; then the same counting
+    (`dryrun.estimate`) on phase 8a's own training configuration on one
+    device, its bound printed beside the step that phase measured and the
+    hand-reckoned bound (`train_bound`). Holds every count positive and
+    finite, each record labelled the port's estimate, the decode cell
+    without a collective term, and the card's memory within 10 % of the
+    H100 constants' capacity."""
+    import torch
+    from repro_torch.configs import ShapeProfile
+    from repro_torch.core.pud.timing import H100_SXM
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"phase": "dryrun_llama2_7b", "card": nvidia_smi(),
+           "hardware": dataclasses.asdict(H100_SXM),
+           "card_total_memory": total, "estimate": dryrun.ESTIMATE}
+    if not abs(total - H100_SXM.hbm_bytes) <= 0.1 * H100_SXM.hbm_bytes:
+        raise AssertionError(f"dryrun: the card has {total} B, the H100 "
+                             f"constants {H100_SXM.hbm_bytes}")
+    keys = ("flops", "flops_by_dtype", "compute_s_by_dtype", "write_bytes",
+            "arg_bytes", "hbm_bytes", "collective_bytes", "flops_split",
+            "local_batch", "build_s", "roofline")
+    for shape in DRYRUN_CELLS:
+        r = dryrun.run_cell("llama2-7b", shape)
+        if not (r["estimate"] == dryrun.ESTIMATE and r["flops"] > 0 and
+                math.isfinite(r["roofline"]["bound_s"]) and
+                r["hbm_bytes"] > 0):
+            raise AssertionError(f"dryrun {shape}: {r}")
+        if (r["kind"] == "train") != (r["collective_bytes"] is not None):
+            raise AssertionError(f"dryrun {shape}: collective term "
+                                 f"{r['collective_bytes']}")
+        out[shape] = {"mesh": r["mesh"], "chips": r["chips"],
+                      **{k: r[k] for k in keys}}
+    cfg = train_config(TRAIN_LAYERS)
+    own = dryrun.estimate(cfg, ShapeProfile("train_llama2_7b", "train",
+                                            TRAIN_SEQ, TRAIN_BATCH),
+                          microbatches=TRAIN_MICRO)
+    measured = train_out["sec_per_step_median_2_8"]
+    bound = own["roofline"]["bound_s"]
+    out["train_llama2_7b"] = {
+        **{k: own[k] for k in keys},
+        "write_bytes_by_part": own["write_bytes_by_part"],
+        "dryrun_bound_ms": bound * 1e3,
+        "dryrun_compute_ms_by_dtype": sum(
+            own["compute_s_by_dtype"].values()) * 1e3,
+        "measured_step_ms": measured * 1e3,
+        "share_of_dryrun_bound": bound / measured,
+        "hand_bound_ms": train_out["bound_ms"],
+        "hand_terms_ms": {k: train_out[k] for k in (
+            "bf16_products_ms", "f32_attention_ms", "adamw_bytes_ms")}}
+    if not (bound > 0 and math.isfinite(bound)):
+        raise AssertionError(f"dryrun train_llama2_7b: bound {bound}")
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
@@ -2927,12 +3098,14 @@ def main() -> int:
     torch.cuda.empty_cache()          # llama2-7b's weights are all freed
 
     # training at full width, train-then-serve, the column shards
-    _, tcfg, tq, tprompts = phase_train()
+    tout, tcfg, tq, tprompts = phase_train()
     phase_train_recovery()
     phase_train_to_serve(tcfg, tq, tprompts)
     del tq
     torch.cuda.empty_cache()
     phase_column_shards()
+    phase_train_sharded()
+    phase_dryrun(tout)
 
     _, rows["gemv_f_experts_mma"] = phase_expert_kernels()
     moe_cfg, moe_params, moe_prompts = phase_zoo_model(MOE_ARCH)

@@ -13,6 +13,7 @@ import dataclasses
 import importlib
 
 from ..models.config import MLAConfig, ModelConfig, SSMConfig
+from .shapes import SHAPES, ShapeProfile  # noqa: F401  (re-exported)
 
 # arch id -> (module, long_500k runnable?) — the JAX package's registry
 ARCHS = {
@@ -29,6 +30,9 @@ ARCHS = {
     "llama2-7b": ("llama2_7b", False),
 }
 
+#: the ten assigned architectures (every one but the paper's llama2-7b)
+ASSIGNED = [k for k in ARCHS if k != "llama2-7b"]
+
 
 def get_config(arch: str) -> ModelConfig:
     mod, _ = ARCHS[arch]
@@ -37,6 +41,20 @@ def get_config(arch: str) -> ModelConfig:
 
 def long_ok(arch: str) -> bool:
     return ARCHS[arch][1]
+
+
+def cells(include_paper_model: bool = False):
+    """All live (arch, shape) dry-run cells, and the skipped ones
+    (long_500k for an arch without sub-quadratic state)."""
+    archs = list(ARCHS) if include_paper_model else ASSIGNED
+    out, skipped = [], []
+    for a in archs:
+        for s in SHAPES:
+            if s == "long_500k" and not long_ok(a):
+                skipped.append((a, s))
+            else:
+                out.append((a, s))
+    return out, skipped
 
 
 def tiny_config(arch: str) -> ModelConfig:

@@ -229,6 +229,25 @@ class CxlModel:
 CXL_TIER = CxlModel()
 
 
+@dataclasses.dataclass(frozen=True)
+class H100:
+    """Per-device roofline constants of the card the port runs on, an
+    NVIDIA H100 SXM, for the dry-run (`launch/dryrun.py`). The JAX
+    package prices its dry-run on the chip it targets (its `TpuV5e`);
+    that class has no twin here because the port's dry-run prices the
+    port's own step on the port's own card, with the figures `PERF.md`
+    uses for it: dense bf16 tensor-core peak, HBM3 rate, NVLink rate per
+    direction, device memory."""
+
+    peak_flops_bf16: float = 989e12   # FLOP/s
+    hbm_bw: float = 3.35e12           # B/s
+    nvlink_bw: float = 450e9          # B/s per direction
+    hbm_bytes: float = 80e9           # capacity
+
+
+H100_SXM = H100()
+
+
 # ---------------------------------------------------------------------------
 # PUD cost evaluation
 # ---------------------------------------------------------------------------

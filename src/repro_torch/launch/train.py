@@ -5,16 +5,20 @@
         --tiny --steps 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --tiny --steps 200 --batch 8 --seq 128 --ckpt-dir runs/run1
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama2-7b --tiny --steps 20 --mesh-model 2
 
 Runs on the GPU unless `--device cpu` is given, with deterministic kernels
 (`torch.use_deterministic_algorithms(True)`; cuBLAS gets the fixed
 workspace `CUBLAS_WORKSPACE_CONFIG` that this needs), so a run recovered
 from a checkpoint is bitwise the uninterrupted one. The mode only warns
 for an op with no deterministic CUDA implementation (a float `cumsum`:
-the MoE dispatch's ranks, the Mamba2 scan). With more than one
-CUDA device visible the host mesh has more than one device and the
-Trainer refuses it: multi-device training is not ported. Prints one JSON
-line of history a logged step.
+the MoE dispatch's ranks, the Mamba2 scan). One process trains on one
+device. Under `torchrun` (WORLD_SIZE > 1) each rank takes one device
+(CUDA device LOCAL_RANK on `nccl`, or the CPU on `gloo` with
+`--device cpu`) and the run is sharded over a ("data", "model") mesh of
+WORLD_SIZE / --mesh-model by --mesh-model (`launch.mesh.make_dist_mesh`).
+Prints one JSON line of history a logged step (rank 0 only).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from ..device import resolve_device
 from ..models.model import stack_plan
 from ..optim.adamw import AdamWConfig
 from ..train.loop import Trainer, TrainerConfig
-from .mesh import make_host_mesh
+from .mesh import make_dist_mesh
 
 
 def main(argv=None):
@@ -62,13 +66,20 @@ def main(argv=None):
 
 
 def _train(args) -> None:
-    device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1:
+        if world % args.mesh_model:
+            raise ValueError(f"--mesh-model {args.mesh_model} does not "
+                             f"divide {world} ranks")
+        mesh = make_dist_mesh((world // args.mesh_model, args.mesh_model),
+                              ("data", "model"), args.device)
+        device, lead = mesh.local_device, torch.distributed.get_rank() == 0
+    else:
+        mesh, device, lead = None, resolve_device(args.device), True
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
-    devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    mesh = (make_host_mesh(model=args.mesh_model, device=device)
-            if devices > 1 else None)
-    print(f"arch={cfg.name} plan={stack_plan(cfg)} devices={devices} "
-          f"mesh={mesh and mesh.shape}")
+    if lead:
+        print(f"arch={cfg.name} plan={stack_plan(cfg)} devices={world} "
+              f"mesh={mesh and mesh.shape}")
 
     trainer = Trainer(
         cfg,
@@ -78,10 +89,13 @@ def _train(args) -> None:
                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
         mesh=mesh, global_batch=args.batch, seq_len=args.seq, device=device)
     _, _, history = trainer.run(args.steps)
-    for h in history:
-        print(json.dumps(h))
-    if trainer.straggler_events:
-        print("straggler events:", trainer.straggler_events)
+    if lead:
+        for h in history:
+            print(json.dumps(h))
+        if trainer.straggler_events:
+            print("straggler events:", trainer.straggler_events)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -28,6 +28,10 @@ NEG_INF = -2.3819763e38  # ~ lowest bf16-representable; used pre-softmax
 FLASH_THRESHOLD = 2048   # use blocked attention above this sequence length
 FLASH_BLOCK = 1024
 FLASH_Q_CHUNK = 4096     # long prefills also chunk the query axis
+FLASH_P_BF16 = False     # score/p tiles in bf16 (the flash-kernel recipe):
+#                          halves the blocked attention's traffic at ~1e-2
+#                          relative error; set per run by the dry-run's
+#                          --flash-bf16
 
 
 def _causal_mask(s_q: int, s_k: int, window: Optional[int],
@@ -65,13 +69,18 @@ def _flash_sdpa(q, k, v, window: Optional[int], cap: Optional[float],
     """Blocked causal attention with running (max, denom, acc): peak memory
     O(Sq·block) instead of O(Sq·Sk). Same-length q/k (prefill path). Key
     blocks entirely in a query chunk's future are skipped — their masked
-    scores would contribute exactly zero."""
+    scores would contribute exactly zero. With `FLASH_P_BF16` the score
+    product takes q and k in q's dtype and p enters the PV product rounded
+    to bf16 (v in its own dtype), as the JAX package's; each product is
+    widened to float32 after it, and the running statistics stay
+    float32."""
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     if hkv != h:                       # query head i attends kv head i//g
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
-    qf = q.to(torch.float32)
+    lowp = FLASH_P_BF16
+    qf = q if lowp else q.to(torch.float32)
     nb = -(-s // block)
 
     def process(q_c, q_lo: int):
@@ -84,21 +93,24 @@ def _flash_sdpa(q, k, v, window: Optional[int], cap: Optional[float],
             lo = jb * block
             if lo >= q_lo + sq:
                 break
-            k_j = k[:, lo:lo + block].to(torch.float32)
-            v_j = v[:, lo:lo + block].to(torch.float32)
+            k_j = k[:, lo:lo + block].to(qf.dtype)
+            v_j = v[:, lo:lo + block]
+            v_j = v_j if lowp else v_j.to(torch.float32)
             k_pos = torch.arange(lo, lo + k_j.shape[1], device=q.device)
             ok = k_pos[None, :] <= q_pos[:, None]
             if window is not None:
                 ok &= (q_pos[:, None] - k_pos[None, :]) < window
-            sc = torch.einsum("bshd,bthd->bhst", q_c, k_j) * scale
+            sc = torch.einsum("bshd,bthd->bhst", q_c,
+                              k_j).to(torch.float32) * scale
             sc = softcap(sc, cap)
             sc = torch.where(ok[None, None], sc,
                              torch.full((), NEG_INF, device=q.device))
             m_new = torch.maximum(m, sc.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(sc - m_new[..., None])
-            acc = acc * alpha[..., None] + torch.einsum("bhst,bthv->bhsv",
-                                                        p, v_j)
+            p_v = p.to(torch.bfloat16).to(v_j.dtype) if lowp else p
+            pv = torch.einsum("bhst,bthv->bhsv", p_v, v_j)
+            acc = acc * alpha[..., None] + pv.to(torch.float32)
             l = l * alpha + p.sum(dim=-1)
             m = m_new
         return acc / l.clamp_min(1e-30)[..., None]      # (b, h, sq, dv)
@@ -115,7 +127,7 @@ def _attend(q, k, v, window, cap, scale):
     """Dispatch direct vs blocked attention by sequence length."""
     s = q.shape[1]
     if s > FLASH_THRESHOLD:
-        return _flash_sdpa(q, k, v, window, cap, scale)
+        return _flash_sdpa(q, k, v, window, cap, scale, FLASH_BLOCK)
     return _sdpa(q, k, v, _causal_mask(s, s, window, q.device), cap, scale)
 
 

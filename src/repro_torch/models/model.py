@@ -235,6 +235,12 @@ def param_defs(cfg: ModelConfig):
     return defs
 
 
+def param_pspecs(cfg: ModelConfig, mesh=None, rules=None):
+    """The `PartitionSpec` of every parameter of `cfg` on `mesh`."""
+    from ..parallel.sharding import defs_to_pspecs
+    return defs_to_pspecs(param_defs(cfg), mesh, rules)
+
+
 def layer_params(tree, i: int):
     """Layer i of a stacked parameter (or cache) tree: every leaf indexed
     on its leading stack axis (views, no copies)."""

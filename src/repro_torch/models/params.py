@@ -84,6 +84,18 @@ def init_params(defs, generator: torch.Generator, device=None):
     return tree_map(make, defs)
 
 
+def abstract_params(defs):
+    """The def tree as meta-device tensors of each leaf's shape and dtype:
+    shapes to build a step on without allocating (the dry-run)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=getattr(
+        torch, d.dtype), device="meta"), defs)
+
+
 def count_params(defs) -> int:
     return sum(d.size for d in tree_leaves(defs))
+
+
+def param_bytes(defs) -> int:
+    return sum(d.size * getattr(torch, d.dtype).itemsize
+               for d in tree_leaves(defs))
 

@@ -6,6 +6,10 @@ compute dtype. The update runs IN PLACE under `torch.no_grad()` — the
 port's counterpart of the JAX step's donated buffers — and returns
 (params, state, metrics) as the JAX function does. The schedule is computed
 on the device from `count`, so a step never waits on the host.
+
+Leaves may be DTensor shards (the sharded trainer's): the update is
+elementwise, so it runs on each rank's local shards, and the clipping norm
+is the norm of the whole gradient (`global_norm`).
 """
 from __future__ import annotations
 
@@ -61,20 +65,51 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage), or `x`."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _counted_once(x: torch.Tensor) -> bool:
+    """Whether this rank's shard of `x` enters the global sum: a plain
+    tensor always; a DTensor on the rank at coordinate 0 of every mesh
+    axis that replicates it, so each element is counted once."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return True
+    coord = x.device_mesh.get_coordinate()
+    return all(isinstance(pl, Shard) or c == 0
+               for pl, c in zip(x.placements, coord))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ over leaves of Σ x²), in float32, summed leaf by leaf."""
-    total = None
+    """sqrt(Σ over leaves of Σ x²), in float32, summed leaf by leaf. Over
+    DTensor leaves it is the norm of the whole tree: each rank sums its
+    shards (a replicated shard on one replica only), and the sums are
+    all-reduced over every axis of the mesh."""
+    total, mesh = None, None
     for leaf in tree_leaves(tree):
-        s = leaf.to(torch.float32).square().sum()
+        if hasattr(leaf, "device_mesh"):
+            mesh = leaf.device_mesh
+        if not _counted_once(leaf):
+            continue
+        s = _local(leaf).to(torch.float32).square().sum()
         total = s if total is None else total + s
+    if mesh is not None:
+        import torch.distributed as dist
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=_local(tree_leaves(tree)[0]).device)
+        for d in range(mesh.ndim):
+            dist.all_reduce(total, group=mesh.get_group(d))
     return torch.sqrt(total)
 
 
 def adamw_init(params) -> dict:
     leaves = tree_leaves(params)
-    device = leaves[0].device if leaves else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    device = _local(leaves[0]).device if leaves else None
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -100,6 +135,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
         bc2 = 1 - torch.pow(torch.full_like(n, cfg.b2), n)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
+            g, m, v, p = _local(g), _local(m), _local(v), _local(p)
             g = g.to(torch.float32) * scale
             m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
             v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)

@@ -1,4 +1,4 @@
-"""Logical-axis sharding rules (port of the JAX package's
+"""Logical-axis sharding rules and placement (port of the JAX package's
 `parallel/sharding.py`).
 
 Every parameter and activation dimension is named with a LOGICAL axis
@@ -9,10 +9,13 @@ mesh axes ("pod", "data", "model"). Rules resolve defensively:
   * a dim that does not divide by its mesh axes falls back to replicated.
 
 `logical_to_pspec` gives the same `PartitionSpec` as the JAX package for
-the same mesh shape. Placing tensors by spec across several GPUs is not
-ported: on a mesh of more than one device `constrain` and
-`defs_to_shardings` raise rather than quietly replicate. Off-mesh and on a
-one-device mesh `constrain` is the identity.
+the same mesh shape. On a mesh over a process group (`launch.mesh.
+make_dist_mesh`) a `NamedSharding` is a list of DTensor placements — a
+mesh axis that a dim names shards that dim, every other axis replicates —
+and `place` puts a tensor there. Compute stays local to a rank: the
+trainer gathers the full leaves before the model runs (`train/step.py`),
+so `constrain` is the identity on plain tensors and a `redistribute` on a
+DTensor. Off-mesh it is the identity.
 """
 from __future__ import annotations
 
@@ -49,10 +52,6 @@ DEFAULT_RULES: dict = {
 
 LONG_CONTEXT_RULES = dict(DEFAULT_RULES, kv_seq=("model", "data"))
 
-MULTI_DEVICE = ("placing tensors by PartitionSpec across several devices "
-                "is the multi-device half of training (ROADMAP A11), not "
-                "ported")
-
 
 class PartitionSpec(tuple):
     """One entry a tensor dim: a mesh axis name, a tuple of them, or None
@@ -68,12 +67,39 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+def _spec_axes(spec) -> dict:
+    """Mesh axis → the tensor dim of `spec` that names it."""
+    dim_of = {}
+    for d, part in enumerate(spec):
+        for ax in ((part,) if isinstance(part, str) else part or ()):
+            dim_of[ax] = d
+    return dim_of
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh (only ever built for a one-device mesh)."""
+    """A spec on a mesh. `placements`: one DTensor placement a mesh axis —
+    `Shard(d)` for the axis that tensor dim d names (a dim named by a
+    tuple of axes, such as ("pod", "data"), is sharded over each of them,
+    in mesh-axis order), `Replicate()` for every other axis."""
 
     mesh: Mesh
     spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        from torch.distributed.tensor import Replicate, Shard
+        dim_of = _spec_axes(self.spec)
+        return [Shard(dim_of[ax]) if ax in dim_of else Replicate()
+                for ax in self.mesh.axis_names]
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one device's shard of a tensor of `shape`."""
+        sizes = self.mesh.shape
+        out = list(shape)
+        for ax, d in _spec_axes(self.spec).items():
+            out[d] //= sizes[ax]
+        return tuple(out)
 
 
 class _Active:
@@ -142,22 +168,41 @@ def logical_to_pspec(axes, shape, mesh=None,
     return P(*parts)
 
 
-def _one_device(mesh, what: str) -> None:
-    if mesh.devices.size > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.devices.size} devices "
-            f"{dict(zip(mesh.axis_names, mesh.devices.shape))}: "
-            f"{MULTI_DEVICE}")
+def batch_axes(mesh, rows: int, rules: Optional[dict] = None) -> tuple:
+    """The mesh axes that split a global batch of `rows` rows (the
+    "batch" rule's axes present in `mesh` that divide it)."""
+    part = (logical_to_pspec(("batch",), (rows,), mesh, rules) or (None,))[0]
+    return (part,) if isinstance(part, str) else tuple(part or ())
 
 
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
-    """The identity off-mesh and on a one-device mesh; raises on a mesh of
-    more than one device."""
+    """Off-mesh, and on a plain tensor (each rank computes on its own
+    full leaves), the identity; a DTensor is redistributed to the spec of
+    `axes` on the active mesh."""
     mesh = _ACTIVE.mesh
-    if mesh is None:
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(x, DTensor):
         return x
-    _one_device(mesh, "constrain")
-    return x
+    spec = logical_to_pspec(axes, x.shape, mesh, _ACTIVE.rules)
+    return x.redistribute(mesh.device_mesh,
+                          NamedSharding(mesh, spec).placements)
+
+
+def place(x, sharding):
+    """`x` (the whole tensor, the same on every rank) as a DTensor laid out
+    by `sharding` on its mesh's process group: each rank keeps its own
+    chunk, nothing is sent. A tree of tensors takes the matching tree of
+    shardings."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(x, dict):
+        return {k: place(v, sharding[k]) for k, v in x.items()}
+    mesh = sharding.mesh
+    if mesh.device_mesh is None:
+        raise ValueError(f"placing a tensor on a mesh of "
+                         f"{mesh.devices.size} devices needs a process "
+                         f"group (launch.mesh.make_dist_mesh)")
+    return distribute_tensor(x, mesh.device_mesh, sharding.placements,
+                             src_data_rank=None)
 
 
 def _map_defs(fn, defs):
@@ -173,12 +218,10 @@ def defs_to_pspecs(defs, mesh=None, rules: Optional[dict] = None):
 
 
 def defs_to_shardings(defs, mesh=None, rules: Optional[dict] = None):
-    """A tree of `NamedSharding` for a one-device mesh; raises on a mesh
-    of more than one device."""
+    """A tree of `NamedSharding`, one a leaf of the def tree."""
     mesh = mesh or _ACTIVE.mesh
     if mesh is None:
         raise ValueError("defs_to_shardings needs a mesh")
-    _one_device(mesh, "defs_to_shardings")
     return _map_defs(lambda d: NamedSharding(
         mesh, logical_to_pspec(d.axes, d.shape, mesh, rules)), defs)
 

@@ -46,6 +46,7 @@ from ..core.quant import QuantSpec
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import Model
+from ..parallel.sharding import logical_to_pspec
 from .quantize import quantize_params
 
 # Independent linears of one block — they read the SAME input, so their
@@ -82,6 +83,27 @@ def cache_leaves(cache, path=()):
     lead = cache.ndim - len(axes)
     seq = lead + axes.index("kv_seq") if "kv_seq" in axes else None
     yield path, cache, lead + axes.index("batch"), seq
+
+
+def cache_pspecs(cache, mesh=None, rules=None):
+    """The `PartitionSpec` of every leaf of a decode-cache tree (tensors or
+    anything with a `shape`): the leaf's `CACHE_AXES`, its leading stack
+    dims unsharded."""
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        axes = CACHE_AXES[path[-1]]
+        full = ("stack",) * (len(tree.shape) - len(axes)) + axes
+        return logical_to_pspec(full, tree.shape, mesh, rules)
+    return walk(cache)
+
+
+def make_serve_step(model: Model):
+    """serve_step(params, cache, inp, pos) → (logits, cache): one decode
+    step of `model` (the cache updated in place)."""
+    def serve_step(params, cache, inp, pos):
+        return model.decode_step(params, cache, inp, pos)
+    return serve_step
 
 
 @dataclasses.dataclass

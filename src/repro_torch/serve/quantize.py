@@ -92,6 +92,27 @@ def init_quantized_params(defs, bits: int, generator: torch.Generator,
     return _walk(defs, fn)
 
 
+def quantize_defs(defs, bits: int):
+    """The def tree as serving parameters without allocating (the
+    dry-run): each servable leaf a `BitplaneWeights` over meta tensors —
+    planes (…, bits, ⌈N/32⌉, M) int32 (the JAX package's uint32 words as
+    bit patterns), scale (…, 1, M) float32, col_sum (…, M) int32 — and
+    every other leaf a meta tensor of its shape and dtype."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def fn(path, d: ParamDef):
+        if not (path and path[-1] in QUANT_LEAF_NAMES and len(d.shape) >= 2):
+            return meta(d.shape, getattr(torch, d.dtype))
+        *lead, n, m = d.shape
+        spec = QuantSpec(bits=bits, group_size=-1)
+        return BitplaneWeights(
+            planes=meta((*lead, bits, (n + 31) // 32, m), torch.int32),
+            scale=meta((*lead, 1, m), torch.float32), zero=spec.zero_point,
+            col_sum=meta((*lead, m), torch.int32), n=n, spec=spec)
+    return _walk(defs, fn)
+
+
 def serving_bytes(defs, bits: int) -> dict:
     """Device bytes: bf16 dense vs packed bit-plane serving (the capacity
     win)."""

@@ -19,6 +19,15 @@ Async saves snapshot every leaf to host memory synchronously (a copy, so
 the next in-place step cannot change it) and write in a daemon thread;
 `wait_for_saves()` joins before the next save or shutdown and re-raises
 what the write raised (a full disk is an error, not a lost checkpoint).
+
+Sharded trees (DTensor leaves, the sharded trainer's): every rank gathers
+every leaf, synchronously, before the snapshot — no collective is ever
+issued from the writer thread — and rank 0 alone writes; every rank waits
+for the commit (a barrier after the write, in `wait_for_saves` for an
+async save). `restore_checkpoint(..., shardings=...)` re-places each leaf
+onto the GIVEN shardings, whose mesh may differ from the one that saved
+(elastic restart onto another mesh): the layout is re-resolved by the
+logical rules, not recorded in the checkpoint.
 """
 from __future__ import annotations
 
@@ -75,11 +84,15 @@ class _AsyncSaver:
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self.sharded = False       # the last save was a sharded tree's
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.sharded:           # every rank waits for rank 0's commit
+            self.sharded = False
+            torch.distributed.barrier()
         err, self._error = self._error, None
         if err is not None:
             raise err
@@ -99,12 +112,27 @@ class _AsyncSaver:
 _SAVER = _AsyncSaver()
 
 
+def _is_sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(v, DTensor) for _, v in _flatten(tree))
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3,
                     async_: bool = False) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    # snapshot NOW: the trainer updates its tensors in place
-    host = [(p, v.detach().to("cpu", copy=True).contiguous())
-            for p, v in _flatten(tree)]
+    sharded = _is_sharded(tree)
+    if sharded:
+        _SAVER.wait()              # every rank: the previous commit first
+    writer = not sharded or torch.distributed.get_rank() == 0
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    # snapshot NOW: the trainer updates its tensors in place (a sharded
+    # leaf is gathered on every rank, here, never in the writer thread)
+    host = []
+    for p, v in _flatten(tree):
+        if sharded and hasattr(v, "full_tensor"):
+            v = v.full_tensor()
+        if writer:
+            host.append((p, v.detach().to("cpu", copy=True).contiguous()))
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
 
@@ -127,11 +155,14 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3,
             f.write("ok\n")
         _prune(ckpt_dir, keep)
 
-    if async_:
+    if writer and async_:
         _SAVER.submit(write)
-    else:
+    elif writer:
         _SAVER.wait()
         write()
+    _SAVER.sharded = sharded
+    if not async_:
+        _SAVER.wait()      # a sharded save: the barrier after the commit
     return final
 
 
@@ -164,15 +195,24 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, f"step_{max(steps):08d}")
 
 
-def restore_checkpoint(path: str, device=None):
+def restore_checkpoint(path: str, device=None, shardings=None):
     """→ (step, tree) with every leaf on `device` (the GPU unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). `shardings`: a tree matching the saved one
+    (or part of it) of `parallel.sharding.NamedSharding`, or None leaves;
+    a leaf with a sharding is re-placed onto it as a DTensor (its mesh
+    may differ from the one that saved: elastic restore)."""
+    from ..parallel.sharding import place
     device = resolve_device(device)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    sh_flat = dict(_flatten(shardings)) if isinstance(shardings, dict) \
+        else {}
     pairs = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for key in data.files:
             t = _from_numpy(data[key], manifest["leaves"][key]["dtype"])
-            pairs.append((tuple(key.split(_SEP)), t.to(device)))
+            path_t = tuple(key.split(_SEP))
+            t = t.to(device)
+            sh = sh_flat.get(path_t)
+            pairs.append((path_t, place(t, sh) if sh is not None else t))
     return manifest["step"], _unflatten(pairs)

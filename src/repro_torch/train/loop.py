@@ -1,5 +1,5 @@
-"""Training loop: async checkpoints, failure recovery, straggler watchdog
-(port of the JAX package's `train/loop.py`, on one device).
+"""Training loop: async checkpoints, failure recovery, elastic restart,
+straggler watchdog (port of the JAX package's `train/loop.py`).
 
 The loop's contract:
     (1) every step's data is a pure function of (seed, step)   [data/]
@@ -12,12 +12,15 @@ kernels (`torch.use_deterministic_algorithms(True)` and
 an uninterrupted one. `SimulatedFailure` injects failures for tests and
 drills.
 
+On a mesh over a process group (`launch.mesh.make_dist_mesh`, one rank a
+device) parameters and AdamW moments are DTensors placed by their logical
+specs (`defs_to_shardings`), the step is the sharded one
+(`train/step.py`), and checkpoints gather on save and re-place on restore.
+Elastic restart: build a Trainer on a DIFFERENT mesh and restore the same
+directory — leaves are re-placed by the new mesh's logical rules.
+
 Straggler watchdog: an EWMA-style median of step times flags outliers
 (> factor × median) as events.
-
-A mesh of more than one device raises: placing parameters by their
-logical specs across devices is the multi-device half of training
-(ROADMAP A11), not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..models.config import ModelConfig
 from ..models.model import Model, param_defs
 from ..models.params import init_params
 from ..optim.adamw import AdamWConfig, adamw_init
-from ..parallel.sharding import MULTI_DEVICE, axis_rules
+from ..parallel.sharding import axis_rules, defs_to_shardings, place
 from . import checkpoint as ckpt
 from .step import make_train_step
 
@@ -63,12 +66,16 @@ class Trainer:
                  global_batch: int = 8, seq_len: int = 128,
                  failure_hook: Optional[Callable[[int], None]] = None,
                  device=None):
-        if mesh is not None and mesh.devices.size > 1:
-            raise NotImplementedError(
-                f"Trainer on a mesh of {mesh.devices.size} devices: "
-                f"{MULTI_DEVICE}")
+        sharded = getattr(mesh, "device_mesh", None) is not None
+        if mesh is not None and mesh.devices.size > 1 and not sharded:
+            raise ValueError(
+                f"a mesh of {mesh.devices.size} devices without a process "
+                f"group: one process drives one device; build the mesh "
+                f"with launch.mesh.make_dist_mesh, one rank a device")
         self.cfg, self.opt, self.tcfg = cfg, opt, tcfg
         self.mesh, self.rules = mesh, rules
+        if sharded and device is None:
+            device = mesh.local_device
         self.device = resolve_device(device)
         self.model = Model(cfg)
         self.defs = param_defs(cfg)
@@ -82,20 +89,33 @@ class Trainer:
         self.recoveries = 0
         self._step = make_train_step(self.model, opt, tcfg.num_microbatches,
                                      tcfg.z_loss, tcfg.remat,
-                                     tcfg.compress_grads)
+                                     tcfg.compress_grads,
+                                     mesh if sharded else None, rules)
+        self.param_sh = self.opt_sh = None
+        if sharded:
+            with axis_rules(mesh, rules):
+                self.param_sh = defs_to_shardings(self.defs)
+            self.opt_sh = {"m": self.param_sh, "v": self.param_sh,
+                           "count": None}
 
     # -- state ----------------------------------------------------------------
 
     def init_state(self):
+        """Params from the seed (the same whole tree on every rank, each
+        rank keeping its shards when sharded) and zero moments."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = init_params(self.defs, gen, self.device)
+        if self.param_sh is not None:
+            params = place(params, self.param_sh)
         return 0, params, adamw_init(params)
 
     def restore_or_init(self):
         if self.tcfg.ckpt_dir:
             path = ckpt.latest_checkpoint(self.tcfg.ckpt_dir)
             if path:
-                step, tree = ckpt.restore_checkpoint(path, self.device)
+                sh = ({"params": self.param_sh, "opt": self.opt_sh}
+                      if self.param_sh is not None else None)
+                step, tree = ckpt.restore_checkpoint(path, self.device, sh)
                 return step, tree["params"], tree["opt"]
         return self.init_state()
 

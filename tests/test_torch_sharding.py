@@ -4,9 +4,9 @@ host mesh (`launch/mesh.py`) against the JAX package.
 Every scenario of tests/test_sharding.py, on the same duck-typed meshes,
 gives the port's `PartitionSpec` equal (as a tuple, exactly) to JAX's
 `logical_to_pspec`; so do the def trees of tiny llama2-7b, gemma2-2b,
-qwen2-moe-a2.7b and mamba2-1.3b. Placement is one-device only: `constrain`
-is the identity off-mesh and on a one-device mesh, and a mesh of more
-than one device is refused (never quietly replicated).
+qwen2-moe-a2.7b and mamba2-1.3b. `constrain` is the identity off-mesh and
+on plain tensors. Placement over several ranks is held in
+tests/test_torch_multidevice.py.
 """
 import numpy as np
 import pytest
@@ -19,9 +19,7 @@ from repro_torch.configs import tiny_config
 from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models.model import param_defs
 from repro_torch.models.params import ParamDef
-from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel import sharding as tsh
-from repro_torch.train.loop import Trainer, TrainerConfig
 
 
 class FakeMesh:
@@ -142,16 +140,3 @@ def test_one_device_mesh_constrains_and_places():
     like = tsh.tree_shardings_like({"m": {"up": 0}}, {"m": {"up": defs[
         "stages"]["0"]["ffn"]["up"]}}, mesh)
     assert like["m"]["up"].spec == tsh.P(None, None, "model")
-
-
-def test_multi_device_mesh_is_refused():
-    two = FakeMesh((2, 1), ("data", "model"))
-    defs = param_defs(tiny_config("llama2-7b"))
-    with tsh.axis_rules(two):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            tsh.constrain(torch.ones(2, 2), "batch", None)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tsh.defs_to_shardings(defs, two)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        Trainer(tiny_config("llama2-7b"), AdamWConfig(), TrainerConfig(),
-                mesh=two, device="cpu")
