@@ -231,6 +231,23 @@ Phases, each printing one JSON line:
  18. the kernels line (B2 over a whole decode block as its own row,
      `program_gemv_block`), then the card's name and power limit, then
      the result line.
+The single-executable decode: every serving slice above (3, 4, 6, 8, 8c,
+10, 11, 13 to 17) serves first through the per-token loop
+(`generate(scan=False)`, or phase 6's loop on `Model`) with the checks
+listed, then the same requests through `generate(scan=True)`, whose
+decode steps of one power-of-two trip bucket replay as one captured CUDA
+graph (pixtral-12b: a `DecodeGraph` fed its frames): greedy tokens equal
+to the loop's, no plain version, and launches equal to the loop's plus
+what the bucket's extra steps launch eagerly (one eager step counted);
+its capture seconds, tokens/s and wall per pass stand beside the loop's
+(`scan` in the slice's line). Phase 3 also holds seeded temperature
+sampling token for token between the two paths. Each batcher phase (7a,
+16a) also serves its requests through the graph tick
+(`ContinuousBatcher(scan=True)`, every trip bucket captured first) beside
+a per-step batcher, tick by tick: the cache bitwise after every tick, the
+outputs equal, the launches exact (`graph_tick`). The profiles (7, 12,
+13) profile the default path, the graph. A `decode_graph` line before
+the kernels line sums the seconds these checks took.
 Any failed check raises, and the script exits nonzero without a result
 line. It needs one CUDA device and exits nonzero without one.
 """
@@ -241,6 +258,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -698,14 +716,119 @@ def launches_per_pass(cfg, act_bits) -> dict:
             "gemv_f_experts_mma": stacks, "gemv_f_experts": 0}
 
 
+def eager_step_counts(model, params, max_seq: int, inp) -> dict:
+    """Launches of ONE eager decode step of `model` (B lanes at position
+    PROMPT of a fresh cache of `max_seq` slots, input `inp`): what each
+    step of a decode graph's replay must add to the counts."""
+    import torch
+    cache = model.init_cache(B, max_seq, "cuda")
+    reset_counts()
+    with torch.no_grad():
+        model.decode_step(params, cache, inp, PROMPT)
+    torch.cuda.synchronize()
+    return counts()["launches"]
+
+
+def held_scan_counts(what, seen, loop_seen, step, extra: int) -> None:
+    """A scan run's counts must be its loop run's plus what `extra` more
+    eager decode steps launch (the trip bucket's frozen tail), with no
+    plain version."""
+    for k, v in loop_seen["launches"].items():
+        if seen["launches"][k] != v + extra * step[k]:
+            raise AssertionError(
+                f"{what}, scan: {k} launched {seen['launches'][k]} times, "
+                f"not the loop's {v} + {extra} eager steps of {step[k]}")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"{what}, scan: a plain version ran on the "
+                             f"card ({seen})")
+
+
+def scan_served(eng, prompts, loop_toks, loop_seen, new, what) -> dict:
+    """`generate(scan=True)` on the requests the loop served (the `scan`
+    fields of the slice's line): one call captures the (B, trip) decode
+    graph, then a counted, timed call must give the loop's greedy tokens
+    with the loop's launches plus the trip's extra steps, no plain
+    version."""
+    import torch
+    t_part = time.perf_counter()
+    trip = min(eng.max_seq - prompts.shape[1] - 1,
+               1 << (new - 2).bit_length())
+    step = eager_step_counts(eng.model, eng.params, eng.max_seq,
+                             prompts[:, 0])
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new=new)           # captures the graph
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    walls, toks, seen = timed_calls(
+        lambda: eng.generate(prompts, max_new=new))
+    held_scan_counts(what, seen, loop_seen, step, trip - (new - 1))
+    if not torch.equal(toks, loop_toks):
+        raise AssertionError(
+            f"{what}: scan tokens differ from the loop's at "
+            f"{int((toks != loop_toks).sum())} positions")
+    dt = statistics.median(walls)
+    graph = eng.decode_graphs[(B, trip)]
+    # where a call's wall goes: the eager prefill, and the replay alone
+    # (on the graph's buffers as the last call left them)
+    with torch.no_grad():
+        prefill_s = min(timed_calls(lambda: eng.model.prefill(
+            eng.params, {"tokens": prompts}, eng.max_seq))[0])
+    replay_s = min(timed_calls(graph.captured.run)[0])
+    return added({
+        "trip": trip, "lanes": B, "capture_seconds": graph.captured.capture_s,
+        "first_call_seconds": first, "seconds": dt, "walls_s": walls,
+        "tokens_per_s": B * new / dt, "wall_per_pass_ms": dt / new * 1e3,
+        "prefill_ms": prefill_s * 1e3, "replay_ms": replay_s * 1e3,
+        "replay_ms_per_step": replay_s / trip * 1e3,
+        "tokens_equal_loop": True,
+        "launches_equal_loop_plus_steps": trip - (new - 1)}, t_part)
+
+
+#: timed calls of a scan run (the first one counted); one call is a few
+#: hundred ms, so a collector's pause would move a single reading
+SCAN_CALLS = 3
+
+
+def timed_calls(call) -> tuple:
+    """(the walls of SCAN_CALLS synchronized calls, the first's result,
+    the counts of the first alone, zeroed just before it)."""
+    import torch
+    walls = []
+    for i in range(SCAN_CALLS):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            first, seen = out, counts()
+    return walls, first, seen
+
+
+#: seconds each check of the single-executable decode took, in order
+ADDED_SECONDS: list = []
+
+
+def added(fields: dict, t0: float) -> dict:
+    """`fields` with the seconds since `t0` (`added_seconds`), which also
+    count into the smoke's total."""
+    dt = time.perf_counter() - t0
+    ADDED_SECONDS.append(dt)
+    return {**fields, "added_seconds": dt}
+
+
 def served(cfg, qparams, prompts, act_bits, must_run=(), want=None,
-           new=NEW):
+           new=NEW, sampled=False):
     """Serve the requests (`new` tokens each) through the kernel backend,
     with the counts zeroed just before and read just after: (engine,
     tokens, the phase line's fields). Fails if a kernel of `must_run`
     never launched, a count differs from `want`, a plain version ran, the
     engine holds a copy of the groups' weights or the tokens are
-    wrong."""
+    wrong. The loop (`scan=False`) serves first; then the same requests
+    through the decode graph (`scan_served`); with `sampled`, seeded
+    temperature sampling must give the same tokens on both paths."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     what = f"{cfg.name} act_bits={act_bits}"
@@ -715,14 +838,15 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None,
                       batch_slots=B, quantized=True, act_bits=act_bits,
                       device="cuda")
     construct = time.perf_counter() - t0
-    eng.generate(prompts[:, :4], max_new=2)      # pack B2 groups, warm up
+    # pack B2 groups, warm up
+    eng.generate(prompts[:, :4], max_new=2, scan=False)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     resident = resident_gb(eng.params, eng.mvdram)
     held_no_copy(resident, what)
     reset_counts()
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, max_new=new)
+    toks = eng.generate(prompts, max_new=new, scan=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = counts()
@@ -742,13 +866,37 @@ def served(cfg, qparams, prompts, act_bits, must_run=(), want=None,
         raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
     if not torch.equal(toks[:, :PROMPT], prompts):
         raise AssertionError(f"{what}: prompt tokens not echoed")
-    return eng, toks, {
+    fields = {
         "tokens_shape": list(toks.shape), "seconds": dt,
         "tokens_per_s": B * new / dt, "wall_per_pass_ms": dt / new * 1e3,
         "setup_seconds": setup, "construct_seconds": construct,
         "placement_fallback": eng.placement_fallback,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **seen,
         "resident": resident}
+    fields["scan"] = scan_served(eng, prompts, toks, seen, new, what)
+    if sampled:
+        fields["scan"]["sampled"] = sampled_check(eng, prompts, new, what)
+    return eng, toks, fields
+
+
+def sampled_check(eng, prompts, new, what) -> dict:
+    """Seeded temperature sampling on the card: the decode graph's tokens
+    equal the loop's (both draw the same noise from the seed, step by
+    step)."""
+    import torch
+    t0 = time.perf_counter()
+    kw = dict(max_new=new, temperature=0.8, seed=SEED + 9)
+    hot = eng.generate(prompts, **kw)
+    loop = eng.generate(prompts, scan=False, **kw)
+    if not torch.equal(hot, loop):
+        raise AssertionError(
+            f"{what}: sampled tokens differ between scan and loop at "
+            f"{int((hot != loop).sum())} positions")
+    greedy = eng.generate(prompts, max_new=new)
+    return added({"temperature": kw["temperature"], "seed": kw["seed"],
+                  "tokens_equal_loop": True,
+                  "positions_differing_from_greedy": int(
+                      (hot != greedy).sum())}, t0)
 
 
 def tied_head(eng) -> dict:
@@ -815,13 +963,14 @@ def ssm_float_check(cfg, qparams, prompts) -> dict:
 
 
 def phase_slice(cfg, qparams, prompts, act_bits, must_run, want=None,
-                name=None) -> dict:
+                name=None, sampled=False) -> dict:
     """Serve the requests (`served`); then hold the prefill logits against
     the same model on the plain versions: bitwise at act_bits, within 5 %
     of max|logit| with float activations (with Mamba2 stages: float32
     ones, `ssm_float_check`). A tied head is timed too."""
     import torch
-    eng, _, out = served(cfg, qparams, prompts, act_bits, must_run, want)
+    eng, _, out = served(cfg, qparams, prompts, act_bits, must_run, want,
+                         sampled=sampled)
     with torch.no_grad():
         got, _ = eng.model.prefill(eng.params, {"tokens": prompts},
                                    eng.max_seq)
@@ -1512,6 +1661,61 @@ def greedy(model, params, prompts, new: int):
     return torch.cat(toks, dim=1), steps
 
 
+def attn_kernel_scan(cfg, qparams, prompts, loop_toks, loop_seen,
+                     what) -> dict:
+    """The token slices of `phase_attn_kernel_slice` through
+    `generate(scan=True)`: a `ServeEngine` of CONTEXT slots with the int8
+    cache, its model swapped for one with attention through B4
+    (`scan_served`'s checks against the phase's greedy loop)."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, qparams, max_seq=CONTEXT, batch_slots=B,
+                      quantized=True, act_bits=4, kv_bits=8, device="cuda")
+    eng.model = Model(cfg, act_bits=4, impl=eng.model.impl, kv_bits=8,
+                      attn_impl="kernel")
+    return scan_served(eng, prompts, loop_toks, loop_seen, NEW, what)
+
+
+def frames_scan(model, params, frames, loop_steps, loop_seen,
+                what) -> dict:
+    """A stubbed frontend's slice (frames in, `teacher_forced`) through a
+    `DecodeGraph` of B lanes and the trip bucket of NEW tokens that feeds
+    step t's frames from its static buffer: each step's argmax must be
+    that of the loop's logits, its launches the loop's plus the extra
+    steps', no plain version."""
+    import torch
+    from repro_torch.serve.decode_graph import DecodeGraph
+    t_part = time.perf_counter()
+    trip = 1 << (NEW - 2).bit_length()
+    step = eager_step_counts(model, params, CONTEXT, frames[:, PROMPT])
+    with torch.no_grad():
+        graph = DecodeGraph(model, params,
+                            model.init_cache(B, CONTEXT, "cuda"), B, trip)
+
+    def run():
+        with torch.no_grad():
+            _, cache = model.prefill(
+                params, {"embeddings": frames[:, :PROMPT]}, CONTEXT)
+            return graph.run(
+                cache, torch.zeros(B, dtype=torch.long, device="cuda"),
+                PROMPT, torch.full((B,), trip, device="cuda"), 0.0,
+                frames=frames[:, PROMPT:PROMPT + trip].transpose(0, 1))
+    run()
+    walls, toks, seen = timed_calls(lambda: run().clone())
+    held_scan_counts(what, seen, loop_seen, step, trip - (NEW - 1))
+    dt = statistics.median(walls)
+    want = torch.stack([torch.argmax(lg, dim=-1) for lg in loop_steps])
+    if not torch.equal(toks[:NEW - 1], want):
+        raise AssertionError(
+            f"{what}: the graph's argmax differs from the loop's at "
+            f"{int((toks[:NEW - 1] != want).sum())} positions")
+    return added({
+        "trip": trip, "lanes": B, "capture_seconds": graph.captured.capture_s,
+        "seconds": dt, "walls_s": walls, "tokens_per_s": B * NEW / dt,
+        "wall_per_pass_ms": dt / NEW * 1e3, "tokens_equal_loop": True,
+        "launches_equal_loop_plus_steps": trip - (NEW - 1)}, t_part)
+
+
 def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
     """act_bits=4 with an int8 KV cache of CONTEXT slots: `Model` on the
     quantized parameters behind `EngineLinear(MVDRAMEngine())`, decode
@@ -1570,6 +1774,8 @@ def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
         raise AssertionError(f"a plain version ran on the card ({seen})")
     if not embeds and not torch.equal(toks[:, :PROMPT], inputs):
         raise AssertionError("prompt tokens not echoed")
+    scan = (frames_scan(kern, qparams, inputs, steps, seen, name) if embeds
+            else attn_kernel_scan(cfg, qparams, inputs, toks, seen, name))
     # B4 against its plain version at every layer of every step, on the
     # path's own inputs (a replay, after the counts were read)
     real, held = dops.decode_attention, []
@@ -1622,7 +1828,7 @@ def phase_attn_kernel_slice(cfg, qparams, inputs, name) -> dict:
     out = {"phase": name, "inputs": "embeddings" if embeds else "tokens",
            "inputs_shape": list(toks.shape), "seconds": dt,
            "tokens_per_s": B * NEW / dt, "wall_per_pass_ms": dt / NEW * 1e3,
-           **seen, "resident": resident, "kv_slots": CONTEXT,
+           "scan": scan, **seen, "resident": resident, "kv_slots": CONTEXT,
            "b4_calls_per_decode_step": per_step,
            "b4_vs_plain_on_path": {"calls": len(held),
                                    "max_abs_err": max(held)},
@@ -1675,12 +1881,13 @@ def batcher_requests(cfg) -> list:
              m) for n, m in zip(BATCH_PROMPTS, BATCH_NEW)]
 
 
-def batcher(eng, reqs, rids=None):
+def batcher(eng, reqs, rids=None, scan=False):
     """A fresh `ContinuousBatcher` on `eng` with the requests `rids` (all
-    by default) submitted."""
+    by default) submitted: the per-step tick, or with `scan` the graph
+    tick."""
     from repro_torch.serve import ContinuousBatcher, Request
     b = ContinuousBatcher(eng.cfg, None, engine=eng,
-                          prefill_chunk=BATCH_CHUNK)
+                          prefill_chunk=BATCH_CHUNK, scan=scan)
     for i, (p, m) in enumerate(reqs):
         if rids is None or i in rids:
             b.submit(Request(rid=i, prompt=p, max_new=m))
@@ -1735,6 +1942,65 @@ def checked_tick(b, replay_b4: bool) -> dict:
         del b._step                     # the class's method again
         dops.decode_attention = real_b4
     return seen
+
+
+def same_cache(a, b) -> bool:
+    from repro_torch.serve.engine import cache_leaves
+    import torch
+    return all(torch.equal(x, y) for (_, x, *_), (_, y, *_) in
+               zip(cache_leaves(a), cache_leaves(b)))
+
+
+def graph_ticks(eng, reqs, out, want_for, what) -> dict:
+    """The requests through the graph tick (`scan=True`, every trip
+    bucket captured first) beside the per-step tick, tick by tick: the
+    cache bitwise the loop's after every tick, the outputs the loop run's,
+    the graph ticks' launches (counted around each) exactly `want_for`
+    their decode steps, no plain version. Each graph tick is timed between
+    synchronizations."""
+    import collections
+    import torch
+    t_part = time.perf_counter()
+    loop, graph = batcher(eng, reqs), batcher(eng, reqs, scan=True)
+    capture = graph.capture_graphs()
+    seen = {"launches": collections.Counter(),
+            "plain": collections.Counter()}
+    wall, ticks = 0.0, 0
+    while graph.pending or graph.in_flight:
+        loop.tick()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.tick()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for k, v in counts().items():
+            seen[k].update(v)
+        ticks += 1
+        if not same_cache(graph.cache, loop.cache):
+            raise AssertionError(f"{what}: the graph tick's cache differs "
+                                 f"from the loop tick's after tick {ticks}")
+    if loop.pending or loop.in_flight or loop.ticks != ticks:
+        raise AssertionError(f"{what}: the loop took {loop.ticks} ticks, "
+                             f"the graph {ticks}")
+    for b in (graph, loop):
+        if {r.rid: r.out for r in b.finished} != out:
+            raise AssertionError(f"{what}: {'graph' if b.scan else 'loop'} "
+                                 f"tick outputs differ from the run's")
+    for k, v in want_for(graph.decode_steps).items():
+        if seen["launches"][k] != v:
+            raise AssertionError(f"{what}, graph tick: {k} launched "
+                                 f"{seen['launches'][k]} times, not {v}")
+    if any(seen["plain"].values()):
+        raise AssertionError(f"{what}, graph tick: a plain version ran")
+    return added({
+        "buckets": sorted(graph.tick_graphs), "capture_seconds": capture,
+        "ticks": ticks, "decode_steps": graph.decode_steps,
+        "tokens_out": graph.tokens_out, "seconds": wall,
+        "tokens_per_s": graph.tokens_out / wall,
+        "wall_per_tick_ms": wall / ticks * 1e3,
+        "caches_bitwise_loop_ticks": ticks, "outputs_equal_loop": True},
+        t_part)
 
 
 def step_ms(b) -> dict:
@@ -1836,8 +2102,6 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
                              f"{[(r.rid, r.done, len(r.out)) for r in done]}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
         raise AssertionError(f"{name}: tokens outside the vocabulary")
-    want = {k: v * b.decode_steps
-            for k, v in launches_per_pass(cfg, 4).items()}
     per_step = 0
     if attn_kernel:
         kinds = stage_kinds(cfg)
@@ -1845,9 +2109,14 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
         _, splits = dk.decode_plan(
             B, max_seq, cfg.attn.num_kv_heads,
             torch.cuda.get_device_properties(0).multi_processor_count)
-        want["decode_attention"] = per_step * b.decode_steps
-        want["decode_attention_fold"] = want["decode_attention"] * (
-            splits > 1)
+
+    def want_for(steps: int) -> dict:
+        want = {k: v * steps for k, v in launches_per_pass(cfg, 4).items()}
+        if attn_kernel:
+            want["decode_attention"] = per_step * steps
+            want["decode_attention_fold"] = per_step * steps * (splits > 1)
+        return want
+    want = want_for(b.decode_steps)
     for k, v in want.items():
         if seen["launches"][k] != v:
             raise AssertionError(f"{name}: {k} launched "
@@ -1927,6 +2196,7 @@ def phase_batcher(cfg, qparams, name, max_seq=BATCH_MAX_SEQ,
     tick_rows = held_rows(f"{name}: a free lane's tick", c.cache, rows)
     stats |= step_ms(c)
     del c
+    stats["graph_tick"] = graph_ticks(eng, reqs, out, want_for, name)
     torch.cuda.synchronize()
     line = {
         "phase": name, "card": nvidia_smi(), "lanes": B,
@@ -1999,11 +2269,11 @@ def phase_baseline_slice(cfg, prompts) -> dict:
     setup = time.perf_counter() - t0
     eng = ServeEngine(cfg, qt, max_seq=PROMPT + NEW + 1, batch_slots=B,
                       device="cuda")
-    eng.generate(prompts[:, :4], max_new=2)              # warm up
+    eng.generate(prompts[:, :4], max_new=2, scan=False)  # warm up
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, max_new=NEW)
+    toks = eng.generate(prompts, max_new=NEW, scan=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = counts()
@@ -2030,9 +2300,12 @@ def phase_baseline_slice(cfg, prompts) -> dict:
     if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:
         raise AssertionError(f"B5 prefill logits differ from the plain "
                              f"versions' (max|Δ| {err}, max|logit| {scale})")
+    scan = scan_served(eng, prompts, toks, seen, NEW,
+                       f"{cfg.name} baseline")
     out = {"phase": "slice_baseline_quant_matmul",
            "tokens_shape": list(toks.shape), "seconds": dt,
-           "tokens_per_s": B * NEW / dt, **seen,
+           "tokens_per_s": B * NEW / dt,
+           "wall_per_pass_ms": dt / NEW * 1e3, "scan": scan, **seen,
            "setup_seconds": setup,
            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
            "prefill_logits_max_abs_err_vs_plain": err,
@@ -2947,7 +3220,7 @@ def held_on_path(eng, prompts, new=NEW) -> dict:
     kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = (
         experts, leaf, group)
     try:
-        eng.generate(prompts, max_new=new)
+        eng.generate(prompts, max_new=new, scan=False)
     finally:
         kernel.gemv_f_experts, kernel.gemv_bs, program.group_gemv = real
     return {**{k: {"calls": len(v), "max_abs_err": max(v, default=None)}
@@ -3072,7 +3345,7 @@ def main() -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     s4 = phase_slice(cfg, qparams, prompts, 4,
                      ("gemv_bs", "gemv_bs_fold", "program_gemv",
-                      "program_gemv_fold"))
+                      "program_gemv_fold"), sampled=True)
     sf = phase_slice(cfg, qparams, prompts, None, ("gemv_f", "gemv_f_fold"))
     res, eng8 = phase_residency(cfg, qparams)
     rows["decode_attention"] = phase_decode_attention()
@@ -3214,6 +3487,8 @@ def main() -> int:
                    for p in blk}})
     kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
     kernels[-1]["max_abs_diff"] = kernels[-1]["max_abs_err"]
+    emit({"phase": "decode_graph", "checks": len(ADDED_SECONDS),
+          "added_seconds": sum(ADDED_SECONDS)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@ when its weight leaf is swapped for `BitplaneWeights`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -157,8 +158,17 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool,
     if dtype is not None:
         x = x.to(dtype)
     if scale:
-        x = x * torch.tensor(d_model, dtype=x.dtype, device=x.device) ** 0.5
+        x = x * embed_scale(d_model, x.dtype)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) as the model's dtype rounds it, `tensor(d_model,
+    dtype) ** 0.5`, as a Python float: the product with it is bitwise the
+    product with that 0-d tensor, and a scalar operand needs no copy from
+    the host (which a CUDA graph's capture refuses)."""
+    return float(torch.tensor(d_model, dtype=dtype) ** 0.5)
 
 
 def lm_head(x: torch.Tensor, w, cap: Optional[float], act_bits=None,

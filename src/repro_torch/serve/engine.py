@@ -10,10 +10,16 @@ default (kernel) backend, each decode step runs:
     are quantized (`act_bits`), `wo`, `down` and `lm_head` per leaf (B1);
   * every linear through B3 when activations stay float (`act_bits=None`).
 
-Decode is the JAX package's per-token loop (its `scan=False` oracle); the
-bucketed masked scan has no counterpart here. The KV cache is updated in
-place. Requests of different lengths share the lanes through
-`serve.scheduler.ContinuousBatcher`.
+Decode (`generate`) is the JAX package's single-executable decode by
+default (`scan=True`): the prefill runs eagerly, then the decode steps of
+one power-of-two trip bucket run as ONE captured CUDA graph
+(`serve.decode_graph.DecodeGraph`), one graph per (lanes, bucket), over an
+engine-owned cache that the prefill's cache is copied into; on the CPU the
+graph's body runs eagerly. A capture that fails raises. `scan=False` is
+the per-token Python loop, kept as the oracle: both give the same tokens,
+greedy and seeded sampling alike. Nothing on the decode path may copy from
+the host or read to the host. Requests of different lengths share the
+lanes through `serve.scheduler.ContinuousBatcher`.
 
 Quantized serving is a RESIDENCY SESSION, as in the JAX package: at
 startup every 2-D quantized weight leaf of the model is registered into
@@ -47,6 +53,7 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import Model
 from ..parallel.sharding import logical_to_pspec
+from .decode_graph import DecodeGraph, sample
 from .quantize import quantize_params
 
 # Independent linears of one block — they read the SAME input, so their
@@ -141,6 +148,12 @@ class ServeEngine:
         # to the program-less path
         self.placement_fallback = False
         self._tick_price_cache: dict = {}
+        # the decode graphs by (lanes, trip bucket), the JAX package's
+        # `_decode_fns`; their caches by lanes, and the model they are of
+        self.decode_graphs: dict = {}
+        self._decode_caches: dict = {}
+        self._graphs_of: Optional[Model] = None
+        self._graph_pool = None
         params = params_to(params, self.device)
         if cfg.tie_embeddings:
             # the tied head reads the whole table every step in the model's
@@ -306,15 +319,48 @@ class ServeEngine:
         stats["resident_program"] = self.decode_program is not None
         return stats
 
+    def _decode_graph(self, b: int, trip: int) -> DecodeGraph:
+        """The decode graph of `b` lanes and `trip` steps, captured on
+        first use over the engine's cache for `b` lanes (kept for the
+        engine's life). A model swapped in after a capture gets graphs of
+        its own."""
+        if self._graphs_of is not self.model:
+            self.decode_graphs.clear()
+            self._decode_caches.clear()
+            self._graphs_of = self.model
+        graph = self.decode_graphs.get((b, trip))
+        if graph is None:
+            if b not in self._decode_caches:
+                self._decode_caches[b] = self.model.init_cache(
+                    b, self.max_seq, self.device)
+            if self.device.type == "cuda" and self._graph_pool is None:
+                # the engine's graphs never replay at once: one pool
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = DecodeGraph(self.model, self.params,
+                                self._decode_caches[b], b, trip,
+                                pool=self._graph_pool)
+            self.decode_graphs[(b, trip)] = graph
+        return graph
+
     @torch.no_grad()
     def generate(self, prompts, max_new: int = 32, temperature: float = 0.0,
-                 seed: int = 0, max_new_per_lane=None) -> torch.Tensor:
+                 seed: int = 0, scan: bool = True,
+                 max_new_per_lane=None) -> torch.Tensor:
         """prompts: int (B, S0), B ≤ slots, equal-length prompts (requests
         of different lengths go through `serve.scheduler.ContinuousBatcher`,
         which shares the lanes between them). Returns
-        (B, S0 + max_new) tokens. `max_new_per_lane` (optional (B,) ints ≤
-        max_new) caps lanes individually: a lane past its budget re-emits
-        its last token (a 0-budget lane its final prompt token)."""
+        (B, S0 + max_new) tokens.
+
+        `scan=True` (the default) runs the decode steps as one captured
+        CUDA graph of trip min(max_seq − S0 − 1, the power of two ≥
+        max_new − 1) steps, whose steps past max_new − 1 run frozen and
+        are dropped (on the CPU, the graph's body eagerly, up to the last
+        kept step); a capture that fails raises. `scan=False` is the
+        per-token loop, the oracle: the same tokens, greedy and with
+        `temperature` > 0 on the same `seed`. `max_new_per_lane` (optional
+        (B,) ints ≤ max_new) caps lanes individually: a lane past its
+        budget re-emits its last token (a 0-budget lane its final prompt
+        token)."""
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s0 = prompts.shape
         if b > self.slots:
@@ -333,9 +379,19 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         logits, cache = self.model.prefill(self.params, {"tokens": prompts},
                                            self.max_seq)
-        cur = self._sample(logits, temperature, gen)
+        cur = sample(logits, temperature, gen)
         if budget is not None:
             cur = torch.where(budget > 0, cur, prompts[:, -1])
+        if scan and max_new > 1:
+            # the power-of-two trip bucket, capped at the cache horizon, as
+            # the JAX package's executables: a bounded set of graphs
+            trip = min(self.max_seq - s0 - 1,
+                       1 << (max_new - 2).bit_length())
+            rest = self._decode_graph(b, trip).run(
+                cache, cur, s0, steps_vec, temperature,
+                gen if temperature > 0.0 else None, kept=max_new - 1)
+            return torch.cat([prompts, cur[:, None],
+                              rest[:max_new - 1].T], dim=1)
         toks = [prompts]
         for t in range(max_new):
             toks.append(cur[:, None])
@@ -344,20 +400,15 @@ class ServeEngine:
             logits, cache = self.model.decode_step(self.params, cache, cur,
                                                    s0 + t)
             cur = torch.where(t < steps_vec,
-                              self._sample(logits, temperature, gen), cur)
+                              sample(logits, temperature, gen), cur)
         return torch.cat(toks, dim=1)
-
-    @staticmethod
-    def _sample(logits, temperature, gen) -> torch.Tensor:
-        if temperature <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     def throughput_tokens_per_s(self, b: int = 1, n: int = 16) -> float:
         """Measured decode tokens/s on this engine's device: b·n generated
-        tokens over the wall time of `generate` (prefill included), after a
-        warm-up call, synchronised on CUDA."""
+        tokens over the wall time of `generate` on its default path
+        (prefill included, and the frozen steps of the trip bucket past
+        n − 1), after a warm-up call that captures the bucket's graph,
+        synchronised on CUDA."""
         prompts = torch.zeros((b, 8), dtype=torch.long, device=self.device)
         self.generate(prompts, max_new=n)
         self._sync()

@@ -2,7 +2,7 @@
 requests of DIFFERENT lengths share the decode lanes.
 
 Every scheduler tick runs `trip` decode steps of `Model.decode_step` over
-all lanes, a Python loop where the JAX package runs one masked jitted scan:
+all lanes:
 
   * a lane in PREFILL phase streams its prompt in CHUNKS: up to
     `prefill_chunk` tokens advance through the decode path in one tick,
@@ -14,22 +14,34 @@ all lanes, a Python loop where the JAX package runs one masked jitted scan:
     layer routes it with the other lanes), and then every cache leaf of
     that lane is put back as it was.
 
+The trip count buckets to the next power of two, capped at
+`prefill_chunk`, as the JAX package's executables do. With `scan` (the
+default on CUDA) a tick is the JAX package's masked scan: the bucket's
+steps run as ONE captured CUDA graph (`serve.decode_graph.CapturedBody`),
+one graph per bucket, over static inputs (each lane's tokens, first
+position and step budget) filled from pinned host memory before the
+replay; on the CPU the graph's body runs eagerly. A capture that fails
+raises. Without `scan` (the default on the CPU, where the tests hold it
+step by step) a tick is a Python loop of `_step` calls: the oracle, and
+bitwise what the graph gives, outputs and cache.
+
 The JAX package freezes a lane with a select over every leaf of the whole
 cache at every step. The port's caches are updated in place, so the freeze
-is an undo log: before a step, the rows that the frozen lanes' step will
-write are gathered, and after it they are scattered back. A frozen lane
-writes position max_seq − 1, so these rows are, for every stacked leaf in
-one index op, the (lane, (max_seq − 1) mod slots) row of each K/V, scale,
-stamp and latent leaf (a full cache and a ring of window slots alike: in a
-ring that slot may hold a live entry, which the undo restores), and the
-lane's whole conv and SSM state rows (`serve.engine.CACHE_AXES`).
+undoes the step's writes: a frozen lane writes position max_seq − 1, so
+what a step can write is, for every stacked leaf, the (lane, (max_seq − 1)
+mod slots) row of each K/V, scale, stamp and latent leaf (a full cache and
+a ring of window slots alike: in a ring that slot may hold a live entry,
+which the undo restores), and the lane's whole conv and SSM state rows
+(`serve.engine.CACHE_AXES`). The loop gathers the frozen lanes' rows
+before a step and scatters them back after it (`_step`, by a host tuple of
+lanes); the graph saves every lane's rows, runs the step and selects the
+saved rows back where the step's mask says a lane is frozen.
 
-The trip count buckets to the next power of two, capped at
-`prefill_chunk`, as the JAX package's executables do. Per-lane positions
-are one (B,) tensor on the device; each lane's next token is the argmax of
-the logits at its last active step, kept on the device and read to the
-host once a tick. Lane admission is O(1): position stamps −1 invalidate
-the previous occupant's entries, and the recurrent state is zeroed.
+Each lane's next token is the argmax of the logits at its last active
+step, kept on the device and read to the host once a tick: nothing else on
+the decode path copies from the host or reads to the host. Lane admission
+is O(1): position stamps −1 invalidate the previous occupant's entries,
+and the recurrent state is zeroed.
 
 The batcher rides on a `ServeEngine` residency session: a quantized
 engine compiles the model's GeMV sequence into a CAPACITY program (`b_max`
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
+from .decode_graph import CapturedBody
 from .engine import ServeEngine, cache_leaves
 
 
@@ -81,16 +94,78 @@ class _Lane:
         return self.req is not None and self.fed < len(self.req.prompt)
 
 
+class TickGraph:
+    """One trip bucket of the batcher's masked tick (the JAX package's
+    `_tick_fn` body) as a captured body over the batcher's cache. Static
+    input `plan` (B, trip + 2): each lane's tokens of the tick, its first
+    position and its step budget; static output `nxt` (B,): each lane's
+    argmax at its last active step (0 for a lane with no step)."""
+
+    def __init__(self, batcher: "ContinuousBatcher", trip: int, pool=None):
+        self.b, self.trip = batcher, trip
+        lanes = len(batcher.lanes)
+        dev = batcher.device
+        self.plan = torch.zeros((lanes, trip + 2), dtype=torch.long,
+                                device=dev)
+        self.nxt = torch.zeros(lanes, dtype=torch.long, device=dev)
+        # the rows a step of a frozen lane writes, with the shape its lane
+        # mask broadcasts to
+        self.rows = []
+        for _, leaf, lane_axis, seq_axis in cache_leaves(batcher.cache):
+            rows = leaf if seq_axis is None else leaf.select(
+                seq_axis, (batcher.max_seq - 1) % leaf.shape[seq_axis])
+            shape = [1] * rows.ndim
+            shape[lane_axis] = lanes
+            self.rows.append((rows, shape))
+        # the warm-up step runs with every budget 0: every lane frozen, so
+        # it leaves the cache bitwise as it was
+        self.captured = CapturedBody(self._body,
+                                     lambda: self._step(0, self.nxt), dev,
+                                     pool)
+
+    def _step(self, t: int, nxt: torch.Tensor) -> torch.Tensor:
+        b = self.b
+        steps = self.plan[:, self.trip + 1]
+        active = steps > t
+        tok = torch.where(active, self.plan[:, t], 0)
+        pos = torch.where(active, self.plan[:, self.trip] + t,
+                          b.max_seq - 1)
+        saved = [rows.clone() for rows, _ in self.rows]
+        logits, _ = b.model.decode_step(b.params, b.cache, tok, pos)
+        frozen = ~active
+        for (rows, shape), old in zip(self.rows, saved):
+            torch.where(frozen.view(shape), old, rows, out=rows)
+        return torch.where(steps - 1 == t, torch.argmax(logits, -1), nxt)
+
+    def _body(self) -> None:
+        nxt = torch.zeros_like(self.nxt)
+        for t in range(self.trip):
+            nxt = self._step(t, nxt)
+        self.nxt.copy_(nxt)
+
+    def run(self, plan: torch.Tensor) -> torch.Tensor:
+        """Load the (B, trip + 2) host `plan` and run the tick's steps →
+        the static `nxt`, valid until the next run."""
+        if self.plan.is_cuda:
+            plan = plan.pin_memory()
+        self.plan.copy_(plan, non_blocking=True)
+        self.captured.run()
+        return self.nxt
+
+
 class ContinuousBatcher:
     """Fixed-lane continuous batching over a `ServeEngine`'s model, on the
     engine's device (the GPU unless `device` or the engine says
-    otherwise)."""
+    otherwise). `scan`: a tick as one captured graph of its trip bucket
+    (True), or as the per-step loop, the oracle (False); by default the
+    graph on CUDA and the loop elsewhere."""
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 256,
                  lanes: int = 4, kv_bits: Optional[int] = None,
                  quantized: bool = False, act_bits: Optional[int] = None,
                  prefill_chunk: int = 8,
-                 engine: Optional[ServeEngine] = None, device=None):
+                 engine: Optional[ServeEngine] = None, device=None,
+                 scan: Optional[bool] = None):
         if not isinstance(prefill_chunk, int) or prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be a positive int, got "
@@ -115,6 +190,9 @@ class ContinuousBatcher:
         self.cache = self.model.init_cache(engine.slots, engine.max_seq,
                                            engine.device)
         self._lane_index: dict = {}
+        self.scan = self.device.type == "cuda" if scan is None else scan
+        self.tick_graphs: dict = {}         # trip bucket -> TickGraph
+        self._graph_pool = None
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self.ticks = 0
@@ -132,6 +210,26 @@ class ContinuousBatcher:
         if self.device.type != "cuda":
             return host.to(self.device)
         return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _tick_graph(self, trip: int) -> TickGraph:
+        """The tick graph of a trip bucket, captured on first use."""
+        graph = self.tick_graphs.get(trip)
+        if graph is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                # the batcher's graphs never replay at once: one pool
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = self.tick_graphs[trip] = TickGraph(self, trip,
+                                                       self._graph_pool)
+        return graph
+
+    def capture_graphs(self) -> float:
+        """Capture the graph of every trip bucket a tick can take now (so
+        that no capture falls inside a timed run) → the seconds they
+        took."""
+        trips = {min(self.prefill_chunk, 1 << (k - 1).bit_length())
+                 for k in range(1, self.prefill_chunk + 1)}
+        return sum(self._tick_graph(t).captured.capture_s
+                   for t in sorted(trips))
 
     def _reset_lane(self, lane: int) -> None:
         """Invalidate one lane in place: position stamps → −1 (masks the
@@ -264,29 +362,8 @@ class ContinuousBatcher:
         # power-of-two trip bucket, as the JAX package's executables
         trip = min(self.prefill_chunk, 1 << (trip_need - 1).bit_length())
         self._account_program(steps)
-        # the (token, position, last active step?) of every lane at every
-        # step: lane i feeds its tokens at pos0 + t while t < steps[i], then
-        # token 0 at max_seq − 1, frozen
-        plan = [[], [], []]
-        for t in range(trip):
-            for rows in plan:
-                rows.append([])
-            for lane, s in zip(self.lanes, steps):
-                if t >= s:
-                    tok, pos, last = 0, self.max_seq - 1, 0
-                else:
-                    tok = (lane.req.prompt[lane.fed + t] if lane.prefilling
-                           else lane.last_tok)
-                    pos, last = lane.pos + t, int(t == s - 1)
-                for rows, v in zip(plan, (tok, pos, last)):
-                    rows[-1].append(int(v))
-        toks, poss, lasts = self._upload(torch.tensor(plan))
-        nxt = torch.zeros(len(self.lanes), dtype=torch.long,
-                          device=self.device)
-        for t in range(trip):
-            frozen = tuple(i for i, s in enumerate(steps) if t >= s)
-            logits = self._step(toks[t], poss[t], frozen)
-            nxt = torch.where(lasts[t] > 0, torch.argmax(logits, -1), nxt)
+        nxt = (self._tick_scan(steps, trip) if self.scan
+               else self._tick_loop(steps, trip))
         self.decode_steps += trip
         nxt = nxt.tolist()                 # the tick's one read to the host
         for i, lane in enumerate(self.lanes):
@@ -312,3 +389,44 @@ class ContinuousBatcher:
                 self.finished.append(lane.req)
                 lane.req = None
         self.ticks += 1
+
+    def _tick_scan(self, steps: list, trip: int) -> torch.Tensor:
+        """The tick as one replay of its bucket's graph: lane i feeds
+        tokens[i][t] at position pos0[i] + t while t < steps[i]."""
+        plan = []
+        for lane, s in zip(self.lanes, steps):
+            if lane.free:
+                toks = []
+            elif lane.prefilling:
+                toks = lane.req.prompt[lane.fed:lane.fed + s]
+            else:
+                toks = [lane.last_tok]
+            plan.append(toks + [0] * (trip - len(toks)) + [lane.pos, s])
+        return self._tick_graph(trip).run(torch.tensor(plan))
+
+    def _tick_loop(self, steps: list, trip: int) -> torch.Tensor:
+        """The tick as a Python loop of `_step` calls, the oracle."""
+        # the (token, position, last active step?) of every lane at every
+        # step: lane i feeds its tokens at pos0 + t while t < steps[i], then
+        # token 0 at max_seq − 1, frozen
+        plan = [[], [], []]
+        for t in range(trip):
+            for rows in plan:
+                rows.append([])
+            for lane, s in zip(self.lanes, steps):
+                if t >= s:
+                    tok, pos, last = 0, self.max_seq - 1, 0
+                else:
+                    tok = (lane.req.prompt[lane.fed + t] if lane.prefilling
+                           else lane.last_tok)
+                    pos, last = lane.pos + t, int(t == s - 1)
+                for rows, v in zip(plan, (tok, pos, last)):
+                    rows[-1].append(int(v))
+        toks, poss, lasts = self._upload(torch.tensor(plan))
+        nxt = torch.zeros(len(self.lanes), dtype=torch.long,
+                          device=self.device)
+        for t in range(trip):
+            frozen = tuple(i for i, s in enumerate(steps) if t >= s)
+            logits = self._step(toks[t], poss[t], frozen)
+            nxt = torch.where(lasts[t] > 0, torch.argmax(logits, -1), nxt)
+        return nxt
